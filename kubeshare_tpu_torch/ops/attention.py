@@ -19,6 +19,7 @@ head once for its H/Hkv query heads; K/V are never repeated.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,11 +29,16 @@ _NEG_INF = -1e30
 # Head dims the CUDA kernels are compiled for (a template argument of
 # csrc/flash_*.cu). On CUDA tensors any other head dim raises.
 FLASH_HEAD_DIMS = (64, 128)
-# The kernels' key-tile width (BK in csrc/flash_common.cuh). The plain
-# versions walk the same tiles, so the forward's online-softmax
-# rescaling (and the rounding of P to the input dtype) happens at the
-# same places.
+# The key-tile width of the backward kernels and the float32 forward (BK
+# in csrc/flash_common.cuh). The plain versions walk the same tiles, so
+# the float32 forward's online-softmax rescaling happens at the same
+# places; the bf16 forward rescales every FLASH_FWD_BLOCK_K keys, which
+# moves where P is rounded to bf16 but not the function.
 FLASH_BLOCK_K = 64
+# The bf16 forward kernel's tiles (FWD_BM, FWD_BN in csrc/flash_fwd.cu):
+# query rows per block (two warpgroups of 64) and keys per K/V tile.
+FLASH_FWD_BLOCK_Q = 128
+FLASH_FWD_BLOCK_K = 128
 
 # Launches of each kernel, counted by its wrapper where it launches.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -121,6 +127,63 @@ def _key_range(q_first: int, q_last: int, t_k: int, causal: bool,
         if window > 0:
             lo = max(0, q_first - window + 1)
     return lo, hi
+
+
+def flash_forward_schedule(batch_heads: int, t_q: int, t_k: int,
+                           causal: bool = True, window: int = 0,
+                           sms: int = 132):
+    """The bf16 forward kernel's work, block by block: one list of
+    ``(bh, q0, lo, hi)`` items per block of its persistent grid
+    (``min(items, sms)`` blocks, one per SM), in the order the block takes
+    them. The items, (head, q tile of FLASH_FWD_BLOCK_Q rows) pairs, are
+    sorted longest first (item i is q tile ``n_qt - 1 - i // (B*H)`` of
+    head ``i % (B*H)``) and dealt in a snake: round r gives block b item
+    ``r*G + b`` (r even) or ``r*G + G - 1 - b`` (r odd). Each item loads
+    key tiles of FLASH_FWD_BLOCK_K from ``lo`` (aligned) to ``hi``. The
+    kernel walks exactly this (``flash_forward_work`` encodes it)."""
+    bq, bk = FLASH_FWD_BLOCK_Q, FLASH_FWD_BLOCK_K
+    n_qt = -(-t_q // bq)
+    n_items = n_qt * batch_heads
+    grid = min(n_items, sms)
+    offset = t_k - t_q if causal else 0
+    blocks = [[] for _ in range(grid)]
+    for r in range(-(-n_items // grid)):
+        for b in range(grid):
+            item = r * grid + (grid - 1 - b if r % 2 else b)
+            if item >= n_items:
+                continue
+            bh, q0 = item % batch_heads, (n_qt - 1 - item // batch_heads) * bq
+            lo, hi = _key_range(q0 + offset, min(q0 + bq, t_q) - 1 + offset,
+                                t_k, causal, window)
+            blocks[b].append((bh, q0, lo - lo % bk, hi))
+    return blocks
+
+
+def flash_forward_work(blocks):
+    """A ``flash_forward_schedule`` as the flat int list the bf16 kernel
+    takes (``FwdItem`` in ``csrc/flash_fwd.cu``): G + 1 offsets, block b
+    taking items ``offsets[b]`` to ``offsets[b + 1] - 1``, then
+    ``bh, q0, lo, hi`` for each item, block after block."""
+    offsets = [0]
+    for block in blocks:
+        offsets.append(offsets[-1] + len(block))
+    return offsets + [x for block in blocks for item in block for x in item]
+
+
+@functools.lru_cache(maxsize=64)
+def _forward_work_on(device: torch.device, batch_heads: int, t_q: int,
+                     t_k: int, causal: bool, window: int):
+    """``(work list on device, blocks)`` for one shape, made once: the
+    list is built on the host and copied to the card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = flash_forward_schedule(batch_heads, t_q, t_k, causal, window,
+                                    sms)
+    work = torch.tensor(flash_forward_work(blocks), dtype=torch.int32,
+                        device=device)
+    # a copy from pageable memory may still be in flight when tensor()
+    # returns: finish it before any stream reads the list
+    torch.cuda.synchronize(device)
+    return work, len(blocks)
 
 
 def flash_attention_reference(q, k, v, causal: bool = True,
@@ -231,18 +294,18 @@ def flash_backward_reference(q, k, v, out, lse, do, g_lse=None,
     return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bind(lib_name: str, fn_name: str, n_ptrs: int):
+def _bind(lib_name: str, fn_name: str, n_ptrs: int, n_extra: int = 0):
     """Entry ``fn_name`` of kernel library ``lib_name`` (built at first
-    use), with its ctypes signature: ``n_ptrs`` tensor pointers, then
-    B H Hkv Tq Tk D bf16 causal (ints), scale (float), window (int) and
-    the stream."""
+    use), with its ctypes signature: ``n_ptrs`` tensor pointers, then B H
+    Hkv Tq Tk D bf16 causal (ints), scale (float), window and ``n_extra``
+    more ints, and the stream."""
     from . import _build
 
     fn = getattr(_build.load(lib_name), fn_name)
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([ptr] * n_ptrs + [i32] * 8
-                       + [ctypes.c_float, i32, ptr])
+        fn.argtypes = ([ptr] * n_ptrs + [i32] * 8 + [ctypes.c_float]
+                       + [i32] * (1 + n_extra) + [ptr])
         fn.restype = ctypes.c_int
     return fn
 
@@ -268,14 +331,16 @@ def _check_kernel_args(**tensors) -> None:
 
 
 def _launch(name: str, fn, q, k, pointers, causal: bool, scale: float,
-            window: int) -> None:
+            window: int, *extra: int) -> None:
+    """Call kernel entry ``fn`` on ``pointers`` (a None passes NULL) and
+    the shapes of q and k, then ``extra`` ints; count the launch."""
     batch, heads, t_q, head_dim = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in pointers), batch, heads,
-                 k.shape[1], t_q, k.shape[2], head_dim,
+        err = fn(*(None if t is None else t.data_ptr() for t in pointers),
+                 batch, heads, k.shape[1], t_q, k.shape[2], head_dim,
                  int(q.dtype == torch.bfloat16), int(causal), float(scale),
-                 int(window), stream)
+                 int(window), *extra, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -283,11 +348,16 @@ def _launch(name: str, fn, q, k, pointers, causal: bool, scale: float,
 
 def _flash_forward_cuda(q, k, v, causal: bool, scale: float, window: int):
     _check_kernel_args(q=q, k=k, v=v)
-    fn = _bind("flash_fwd", "flash_fwd", 5)
+    fn = _bind("flash_fwd", "flash_fwd", 6, n_extra=1)
     out = torch.empty_like(q)
     lse = torch.empty(*q.shape[:3], 1, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", fn, q, k, (q, k, v, out, lse), causal, scale,
-            window)
+    work, blocks = None, 0   # the float32 kernel has a one-shot grid
+    if q.dtype == torch.bfloat16:
+        work, blocks = _forward_work_on(q.device, q.shape[0] * q.shape[1],
+                                        q.shape[2], k.shape[2], causal,
+                                        window)
+    _launch("flash_fwd", fn, q, k, (q, k, v, out, lse, work), causal, scale,
+            window, blocks)
     return out, lse
 
 

@@ -2,6 +2,15 @@
 // tile sizes, the key range and mask of a tile, and the bf16 tensor-core
 // helpers (ldmatrix, mma.sync m16n8k16, cp.async).
 //
+// Who uses what. The bf16 forward (flash_fwd_bf16) has its own tiles
+// (FWD_BM, FWD_BN in flash_fwd.cu), Hopper helpers (hopper.cuh) and key
+// ranges (its work list, built on the host); of this file it takes
+// visible, NEG_INF, pack_bf16 and allow_smem. BQ, BK, LDQ, LDK,
+// FMA_THREADS and key_range are the float32 kernels' (forward and
+// backward) and the bf16 backward's. MMA_THREADS, the ldmatrix / mma.sync
+// / cp.async helpers, load_tile_async, load_rows_f32_async and fast_exp
+// are the backward's alone.
+//
 // Positions: causal rows align to the end of the keys (query i sits at
 // position i + Tk - Tq; the wrappers require Tq <= Tk). A pair (query at
 // qpos, key at kpos) is visible when kpos < Tk and, under a causal mask,

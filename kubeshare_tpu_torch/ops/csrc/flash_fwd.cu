@@ -7,221 +7,464 @@
 // flash_attention_reference in ../attention.py.
 //
 // Layout. q [B*H, Tq, D], k/v [B*Hkv, Tk, D], out like q, lse [B*H, Tq]
-// float32, all contiguous and 16-byte aligned. One thread block per
-// (b*h, 64-row q tile); a loop over 64-key K/V tiles inside the block
-// replaces the Pallas grid's sequential third axis. The kv head is
-// picked from blockIdx as (b / H) * Hkv + (b % H) / (H / Hkv), so K/V
-// are never repeated. The loop bounds come from the causal diagonal and
-// the window: tiles that no query of the block can see are never
-// loaded (the TPU kernel skipped their compute but still ran their
-// DMA). Ragged edges are masked here: rows past Tq are computed on
-// zeros and not written, keys past Tk are zero-filled and masked.
+// float32, all contiguous and 16-byte aligned. The kv head of query head
+// bh is (bh / H) * Hkv + (bh % H) / (H / Hkv), so K/V are never repeated.
+// A block loops over the key tiles its queries can see (the causal
+// diagonal and the window bound the loop, so dead tiles are never loaded:
+// key_range for float32, the host's work list for bf16); that loop
+// replaces the Pallas grid's sequential third axis.
+// Ragged edges: rows past Tq are computed on zeros and not written, keys
+// past Tk arrive as zeros and are masked.
 //
-// Numerics kept from _flash_kernel: products of input-dtype values
-// accumulated in float32; float32 running max, sum and accumulator;
-// -1e30 (not -inf) for masked scores; P rounded to the input dtype
-// before the PV product (its row sum taken before the rounding);
-// l = max(l, 1e-30); lse = m + log(l). Causal rows align to the end of
-// the keys (query i is at position i + Tk - Tq; the wrapper requires
-// Tq <= Tk).
+// Numerics kept from _flash_kernel: products of input-dtype values summed
+// in float32; float32 running max, sum and accumulator; -1e30 (not -inf)
+// for masked scores; P rounded to the input dtype before the PV product
+// (its row sum taken before the rounding); l = max(l, 1e-30);
+// lse = m + log(l). Causal rows align to the end of the keys (query i is
+// at position i + Tk - Tq; the wrapper requires Tq <= Tk). No atomics:
+// two launches give the same bits.
 //
-// What bounds it on the H100. At the Llama-3-8B smoke shape (B=1,
-// H=32, Hkv=8, T=2048, D=128, causal, bf16) the work is ~34.4 GFLOP
-// against ~42 MB of traffic: ~35 us at 989 TFLOP/s of bf16 tensor-core
-// peak, ~13 us at 3.35 TB/s. It is compute-bound, so the bf16 kernel
-// (flash_fwd_bf16) runs both products on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, float32 accumulators): 4 warps of 16
-// query rows each; Q's fragments stay in registers for the whole key
-// loop; K/V tiles are staged in padded shared memory and fed with
-// ldmatrix (.trans for V); the S accumulators are re-packed in
-// registers as the A operand of the PV product (no trip through shared
-// memory); the next K/V tile is fetched with cp.async into a second
-// buffer while the current one computes. By instruction count the
-// softmax, not the tensor cores, bounds the tile loop, so tiles that
-// every row sees whole skip the per-element mask and the exponentials
-// run as ex2.approx on the special-function unit. TMA, a deeper ring, warp
-// specialisation and wgmma are the next steps (ROADMAP Queue 2).
-// float32 inputs have no tensor-core path with float32 products, so
-// flash_fwd_f32 does them with FMAs on the CUDA cores (67 TFLOP/s peak).
+// What bounds it on the H100. At the Llama-3-8B shape (B=1, H=32, Hkv=8,
+// T=2048, D=128, causal, bf16) the work is ~34.4 GFLOP against ~42 MB of
+// traffic: ~35 us at 989 TFLOP/s of bf16 tensor-core peak, ~13 us at
+// 3.35 TB/s. It is bound by operations, and on Hopper only wgmma reaches
+// that peak. The mma.sync kernel this one replaced reached 140 TFLOP/s:
+// 4 warps of 16 rows (206 registers, 2 blocks an SM) ran each product
+// and then its softmax in turn, every thread spent registers and
+// instructions on cp.async addresses, and each 64-row q tile re-read its
+// K/V tiles from L2.
+//
+// The bf16 kernel (flash_fwd_bf16) is warp-specialised, after
+// FlashAttention-3:
+// - 128 query rows a work item, held by two consumer warpgroups of 64
+//   rows; each K/V tile read from L2 serves all 128 (half the re-reads of
+//   64-row tiles).
+// - A producer warp starts TMA loads (3-D tensor maps, so rows past a
+//   ragged T are zero-filled inside their own head) of Q once an item and
+//   of 128-key K and V tiles into a ring of FWD_STAGES stages, with
+//   mbarriers: K and V have their own full and empty barriers, so S can
+//   start before V lands and a K tile is released once S is done. It gives
+//   up registers (setmaxnreg) to the consumers, whose float32 accumulators
+//   (S: 64 x 128, O: 64 x D a warpgroup) then fit without spills.
+// - S = Q K^T is a wgmma with both operands in 128-byte-swizzled shared
+//   memory; O += P V a wgmma with P from registers (the S accumulator's
+//   layout is the A fragment's, so P is packed to bf16 in place) and V
+//   MN-major from shared memory (the transpose bit).
+// - Overlap inside a warpgroup: S of tile j and P V of tile j - 1 are
+//   started together, and the softmax of tile j runs while P V is still on
+//   the tensor cores. Between the two warpgroups a ping-pong of named
+//   barriers hands the tensor cores to one while the other runs its
+//   softmax.
+// - The softmax works on unscaled scores: each exponential is one FFMA
+//   (scale log2 e folded in) and one ex2.approx; the per-element mask runs
+//   only on tiles some (row, key) pair of which is hidden.
+// - Persistent grid, one block per SM, over (b*h, q tile) work items.
+//   The host deals them (flash_forward_schedule in ../attention.py:
+//   longest first, in a snake, so each block's total work is about even)
+//   and passes the list; a block walks its share of it, and one item's
+//   epilogue overlaps the next item's loads.
+// Variants were timed against each other in one call on an H100 (PERF.md
+// section 6): the overlap, the ping-pong and the FFMA softmax each made
+// the 8B shape faster; 64-key tiles were slower; a 3-stage ring was a few
+// per cent faster at T = 2048 and as much slower at T = 4096, so the ring
+// keeps 2; one block per item was slower at B = 4 and T = 4096.
+// float32 inputs have no tensor-core path with float32 products (TF32
+// would change the numbers), so flash_fwd_f32 does them with FMAs on the
+// CUDA cores (67 TFLOP/s peak).
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-// ---- bf16: tensor cores (mma.sync) ----------------------------------
+// ---- bf16: TMA ring, wgmma, warp-specialised consumers ----------------
+
+constexpr int FWD_BM = 128;         // query rows per block
+constexpr int FWD_THREADS = 384;    // consumer warpgroups 0, 1; producer 2
+constexpr int FWD_CONSUMERS = 256;  // threads of the consumer warpgroups
+constexpr int BOX_COLS = 64;        // bf16 columns of one swizzled TMA box
+constexpr int FWD_BN = 128;         // keys per K/V tile
+constexpr int FWD_STAGES = 2;       // depth of the K/V ring
+
+// Tiles as D / 64 column halves of [rows][64] bf16 (hopper.cuh); every
+// half is a multiple of 1024 bytes, so all start on the swizzle's period.
+// K and V of a stage have their own full and empty barriers: a K tile is
+// released as soon as its S product is done.
+template <int D>
+struct FwdSmem {
+  static constexpr int HALVES = D / BOX_COLS;
+  __nv_bfloat16 q[HALVES][FWD_BM * BOX_COLS];
+  __nv_bfloat16 k[FWD_STAGES][HALVES][FWD_BN * BOX_COLS];
+  __nv_bfloat16 v[FWD_STAGES][HALVES][FWD_BN * BOX_COLS];
+  uint64_t full_q, empty_q, full_k[FWD_STAGES], full_v[FWD_STAGES];
+  uint64_t empty_k[FWD_STAGES], empty_v[FWD_STAGES];
+};
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                   int heads, int kv_heads, int t_q, int t_k, int causal,
-                   float scale, int window) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;  // k-steps of the QK^T product
-  constexpr int DT = D / 8;   // 8-wide output column tiles
-  constexpr int NT = BK / 8;  // 8-wide score column tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // q tile, then two K and two V tiles: tile i+1 loads while i computes
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + BQ * LD;
-  __nv_bfloat16* vs = ks + 2 * BK * LD;
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(FwdSmem<D>) + 1024;  // room to align the base to 1024
+}
 
-  const int bh = blockIdx.y;
-  // the last q tiles see the most keys under a causal mask: start them
-  // first, so the short ones fill the tail of the grid
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int kvh = (bh / heads) * kv_heads + (bh % heads) / (heads / kv_heads);
-  const __nv_bfloat16* kp = k + (size_t)kvh * t_k * D;
-  const __nv_bfloat16* vp = v + (size_t)kvh * t_k * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;  // mma fragment coordinates
-  const KeyRange range = key_range(q0, t_q, t_k, causal, window);
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  load_tile_async<D>(qs, q + (size_t)bh * t_q * D, q0, t_q);
-  cp_async_commit();
-  load_tile_async<D>(ks, kp, range.lo, t_k);
-  load_tile_async<D>(vs, vp, range.lo, t_k);
-  cp_async_commit();
-  cp_async_wait<1>();  // q has landed
-  __syncthreads();
-  uint32_t qf[KS][4];  // this warp's 16 rows of Q as A fragments
-#pragma unroll
-  for (int s = 0; s < KS; ++s)
-    load_a(qf[s], qs, LD, warp * 16, s);
+// Ping-pong of the two consumer warpgroups (named barriers 1 and 2, each of
+// both warpgroups' 256 threads): a warpgroup waits for its turn before it
+// starts its products and hands the turn over once they are started, so one
+// warpgroup's softmax runs while the other's products hold the tensor cores.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(FWD_CONSUMERS)
+               : "memory");
+}
 
-  // absolute positions of this thread's two rows (g and g + 8)
-  const int qpos0 = range.q_first + warp * 16 + g, qpos1 = qpos0 + 8;
+__device__ __forceinline__ void turn_pass(int wg, bool last = false) {
+  // warpgroup 1 passed first, so its last turn is not passed on: every
+  // sync then meets one arrival and no barrier is left half-way at exit
+  if (!(last && wg == 1))
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(FWD_CONSUMERS)
+                 : "memory");
+}
+
+// One consumer warpgroup: 64 query rows of the block, their running max
+// (of the unscaled scores), this thread's share of their row sums, and the
+// products and softmax of one key tile.
+template <int D>
+struct FwdRows {
+  static constexpr int NS = FWD_BN / 2;  // score accumulators a thread
+  static constexpr int NO = D / 2;       // output accumulators a thread
+  FwdSmem<D>& sm;
+  int wg, qpos0, qpos1, first, last, t_k, causal, window;
+  float scale_log2;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  float o[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  float c0 = 0.f, c1 = 0.f;  // rescale of O from the latest softmax
 
-  for (int k0 = range.lo, buf = 0; k0 < range.hi; k0 += BK, buf ^= 1) {
-    if (k0 + BK < range.hi) {  // prefetch the next tile into the other buffer
-      load_tile_async<D>(ks + (buf ^ 1) * BK * LD, kp, k0 + BK, t_k);
-      load_tile_async<D>(vs + (buf ^ 1) * BK * LD, vp, k0 + BK, t_k);
+  // S = Q K^T of the tile in `stage`, started, not committed
+  __device__ __forceinline__ void start_qk(float (&s)[NS], int stage) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // k step kk: 16 columns at 32 bytes into half kk / 4
+      const uint64_t a = sw128_desc(
+          sm.q[kk / 4] + wg * 64 * BOX_COLS + (kk % 4) * 16, 16, 1024);
+      const uint64_t b =
+          sw128_desc(sm.k[stage][kk / 4] + (kk % 4) * 16, 16, 1024);
+      WgmmaSS<FWD_BN>::run(s, a, b, kk > 0);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile has landed
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + buf * BK * LD;
-    const __nv_bfloat16* vt = vs + buf * BK * LD;
+  }
 
-    float s[NT][4];
+  // O += P V of the tile in `stage`, started, not committed
+  __device__ __forceinline__ void start_pv(float (&o)[NO],
+                                           const uint32_t (&pf)[NS / 8][4],
+                                           int stage) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-    for (int st = 0; st < KS; ++st) {
-#pragma unroll
-      for (int t = 0; t < NT; t += 2) {
-        // keys 8t..8t+15 (rows of K), dims 16st..16st+15
-        uint32_t b[4];
-        load_b_rows(b, kt, LD, t * 8, st);
-        mma_bf16(s[t], qf[st], b[0], b[1]);
-        mma_bf16(s[t + 1], qf[st], b[2], b[3]);
-      }
+    for (int kk = 0; kk < FWD_BN / 16; ++kk) {
+      // keys 16 kk .. 16 kk + 15: 16 rows (2048 bytes) into each half;
+      // the next 64 output columns one half (FWD_BN * 128 bytes) on
+      const uint64_t b = sw128_desc(sm.v[stage][0] + kk * 16 * BOX_COLS,
+                                    FWD_BN * 128, 1024);
+      WgmmaRS<D>::run(o, pf[kk], b);
     }
+  }
 
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] *= scale;
-    // the per-element mask only where some (row, key) pair of the tile
-    // is not visible: the diagonal, the window's edge, the ragged end
-    const bool whole =
-        k0 + BK <= t_k &&
-        (!causal || (k0 + BK - 1 <= range.q_first &&
-                     (window <= 0 || k0 > range.q_first + BQ - 1 - window)));
+  // Mask, new row max, the rescale c of O and l, and P = e^(scale (S - m))
+  // in place of S (float32), for the tile of keys at k0. Masked scores are
+  // -1e30 before the scale, which keeps them far below any real one.
+  __device__ __forceinline__ void softmax(float (&s)[NS], int k0, int tig) {
+    // the per-element mask only where some (row, key) pair of the tile is
+    // hidden: the diagonal, the window's edge, the ragged end
+    const bool whole = k0 + FWD_BN <= t_k &&
+                       (!causal || (k0 + FWD_BN - 1 <= first &&
+                                    (window <= 0 || k0 > last - window)));
     if (!whole) {
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
+      for (int j = 0; j < FWD_BN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + t * 8 + 2 * tig + e;
-          if (!visible(qpos0, kpos, t_k, causal, window)) s[t][e] = NEG_INF;
+          const int kpos = k0 + j * 8 + 2 * tig + e;
+          if (!visible(qpos0, kpos, t_k, causal, window)) s[4 * j + e] = NEG_INF;
           if (!visible(qpos1, kpos, t_k, causal, window))
-            s[t][2 + e] = NEG_INF;
+            s[4 * j + 2 + e] = NEG_INF;
         }
       }
     }
-    float mx0 = NEG_INF, mx1 = NEG_INF;
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      mx0 = fmaxf(mx0, fmaxf(s[t][0], s[t][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[t][2], s[t][3]));
+    for (int j = 0; j < FWD_BN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
-    // a row's 64 scores sit in the 4 lanes of a quad
+    // a row's scores sit in the 4 lanes of a quad
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float c0 = fast_exp(m0 - n0), c1 = fast_exp(m1 - n1);
+    c0 = exp2_approx((m0 - mx0) * scale_log2);
+    c1 = exp2_approx((m1 - mx1) * scale_log2);
+    m0 = mx0;
+    m1 = mx1;
+    // 2^(scale log2(e) (s - m)) as one FFMA and one ex2. A row that has
+    // seen only masked keys subtracts 0: its P is then 0 where the
+    // reference's is 1, and either is wiped by the next real key's
+    // rescale (c = 0) before anything reaches the output.
+    const float b0 = m0 == NEG_INF ? 0.f : m0 * scale_log2;
+    const float b1 = m1 == NEG_INF ? 0.f : m1 * scale_log2;
     float sum0 = 0.f, sum1 = 0.f;
-    uint32_t pf[NT / 2][4];  // P as A fragments of the PV product
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const float p0 = fast_exp(s[t][0] - n0), p1 = fast_exp(s[t][1] - n0);
-      const float p2 = fast_exp(s[t][2] - n1), p3 = fast_exp(s[t][3] - n1);
-      sum0 += p0 + p1;
-      sum1 += p2 + p3;
-      pf[t / 2][(t % 2) * 2] = pack_bf16(p0, p1);      // row g
-      pf[t / 2][(t % 2) * 2 + 1] = pack_bf16(p2, p3);  // row g + 8
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    for (int j = 0; j < FWD_BN / 8; ++j) {
+      s[4 * j] = exp2_approx(fmaf(s[4 * j], scale_log2, -b0));
+      s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -b0));
+      s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -b1));
+      s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -b1));
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
     }
     l0 = l0 * c0 + sum0;
     l1 = l1 * c1 + sum1;
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      o[t][0] *= c0;
-      o[t][1] *= c0;
-      o[t][2] *= c1;
-      o[t][3] *= c1;
-    }
-
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-#pragma unroll
-      for (int t = 0; t < DT; t += 2) {
-        // keys 16j..16j+15 (rows of V), dims 8t..8t+15, transposed
-        uint32_t b[4];
-        load_b_cols(b, vt, LD, j, t * 8);
-        mma_bf16(o[t], pf[j], b[0], b[1]);
-        mma_bf16(o[t + 1], pf[j], b[2], b[3]);
-      }
-    }
-    __syncthreads();  // done reading buf before the next prefetch refills it
   }
 
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  __nv_bfloat16* op = out + (size_t)bh * t_q * D;
+  // P rounded to bf16 as the A fragments of the PV product: k step kk
+  // takes the accumulator's 8-column chunks 2 kk and 2 kk + 1
+  __device__ __forceinline__ static void pack(const float (&s)[NS],
+                                              uint32_t (&pf)[NS / 8][4]) {
+#pragma unroll
+    for (int j = 0; j < FWD_BN / 8; ++j) {
+      pf[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);  // row g
+      pf[j / 2][(j % 2) * 2 + 1] =
+          pack_bf16(s[4 * j + 2], s[4 * j + 3]);  // row g + 8
+    }
+  }
+
+  __device__ __forceinline__ void rescale(float (&o)[NO]) const {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= c0;
+      o[4 * j + 1] *= c0;
+      o[4 * j + 2] *= c1;
+      o[4 * j + 3] *= c1;
+    }
+  }
+};
+
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  if (lane == 0) mbar_arrive(bar);  // one arrival per consumer warp
+}
+
+// A position in the ring of K/V stages: the stage and the parity of its
+// current use. Producer and consumers walk it in the same order, across
+// all of a block's work items.
+struct Ring {
+  int stage = 0, phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == FWD_STAGES) stage = 0, phase ^= 1;
+  }
+};
+
+// One work item of the host's list: query head bh, its FWD_BM-row q tile
+// at q0, and the keys [lo, hi) its rows can see (lo a multiple of FWD_BN).
+// The list is int32: G + 1 offsets (block b takes items offsets[b] to
+// offsets[b + 1] - 1, in that order), then four ints an item.
+struct FwdItem {
+  int bh, q0, lo, hi;
+};
+
+__device__ __forceinline__ FwdItem fwd_item(const int* __restrict__ items,
+                                            int i) {
+  const int* p = items + 4 * i;
+  return {p[0], p[1], p[2], p[3]};
+}
+
+// One work item for the two consumer warpgroups: each owns 64 query rows.
+// Each step starts S of tile j and P V of tile j - 1 together and runs the
+// softmax of tile j while P V is still on the tensor cores.
+template <int D>
+__device__ __forceinline__ void fwd_consume(
+    FwdSmem<D>& sm, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    const FwdItem& it, int t_q, int t_k, int causal, float scale_log2,
+    int window, Ring& ring, bool final_item) {
+  using Rows = FwdRows<D>;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int offset = causal ? t_k - t_q : 0;
+  const int row0 = it.q0 + wg * 64 + warp * 16 + g, row1 = row0 + 8;
+  const int wg_row = it.q0 + wg * 64;
+  Rows rows{sm,
+            wg,
+            row0 + offset,
+            row1 + offset,
+            wg_row + offset,
+            min(wg_row + 64, t_q) - 1 + offset,
+            t_k,
+            causal,
+            window,
+            scale_log2};
+
+  float o[Rows::NO];
+#pragma unroll
+  for (int i = 0; i < Rows::NO; ++i) o[i] = 0.f;
+  float s[Rows::NS];
+  uint32_t pf[Rows::NS / 8][4];
+  const int n_tiles = (it.hi - it.lo + FWD_BN - 1) / FWD_BN;
+  int k0 = it.lo;
+  Ring cur = ring;  // tile j - 1, whose V is pending
+  mbar_wait(&sm.full_k[cur.stage], cur.phase);
+  turn_wait(wg);
+  wgmma_fence();
+  rows.start_qk(s, cur.stage);
+  wgmma_commit();
+  turn_pass(wg);
+  wgmma_wait<0>();
+  fence_regs(s);
+  release(&sm.empty_k[cur.stage], lane);
+  rows.softmax(s, k0, tig);
+  Rows::pack(s, pf);
+  for (int j = 1; j < n_tiles; ++j) {
+    Ring next = cur;
+    next.advance();
+    k0 += FWD_BN;
+    rows.rescale(o);
+    mbar_wait(&sm.full_k[next.stage], next.phase);
+    turn_wait(wg);
+    wgmma_fence();
+    rows.start_qk(s, next.stage);
+    wgmma_commit();
+    mbar_wait(&sm.full_v[cur.stage], cur.phase);
+    rows.start_pv(o, pf, cur.stage);
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<1>();  // S is done; P V may still run
+    fence_regs(s);
+    release(&sm.empty_k[next.stage], lane);
+    rows.softmax(s, k0, tig);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(&sm.empty_v[cur.stage], lane);
+    Rows::pack(s, pf);
+    cur = next;
+  }
+  rows.rescale(o);
+  mbar_wait(&sm.full_v[cur.stage], cur.phase);
+  turn_wait(wg);
+  wgmma_fence();
+  rows.start_pv(o, pf, cur.stage);
+  wgmma_commit();
+  turn_pass(wg, final_item);
+  wgmma_wait<0>();
+  fence_regs(o);
+  release(&sm.empty_v[cur.stage], lane);
+  release(&sm.empty_q, lane);  // Q may be refilled for the next item
+  ring = cur;
+  ring.advance();
+
+  float l0 = rows.l0, l1 = rows.l1;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const float m_scale = 0.6931471805599453f * scale_log2;  // = scale
+  __nv_bfloat16* op = out + (size_t)it.bh * t_q * D;
   if (row0 < t_q) {
 #pragma unroll
-    for (int t = 0; t < DT; ++t)
-      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * D + t * 8 +
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * D + j * 8 +
                                          2 * tig) =
-          __floats2bfloat162_rn(o[t][0] * inv0, o[t][1] * inv0);
-    if (tig == 0) lse[(size_t)bh * t_q + row0] = m0 + logf(fmaxf(l0, 1e-30f));
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    if (tig == 0) lse[(size_t)it.bh * t_q + row0] = rows.m0 * m_scale + logf(l0);
   }
   if (row1 < t_q) {
 #pragma unroll
-    for (int t = 0; t < DT; ++t)
-      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * D + t * 8 +
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * D + j * 8 +
                                          2 * tig) =
-          __floats2bfloat162_rn(o[t][2] * inv1, o[t][3] * inv1);
-    if (tig == 0) lse[(size_t)bh * t_q + row1] = m1 + logf(fmaxf(l1, 1e-30f));
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    if (tig == 0) lse[(size_t)it.bh * t_q + row1] = rows.m1 * m_scale + logf(l1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   const int* __restrict__ work, int heads, int kv_heads,
+                   int t_q, int t_k, int causal, float scale_log2,
+                   int window) {
+  constexpr int HALVES = D / BOX_COLS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw + pad);
+  const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
+  const int* items = work + gridDim.x + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.full_q, 1);
+    mbar_init(&sm.empty_q, FWD_CONSUMERS / 32);  // one per consumer warp
+#pragma unroll
+    for (int i = 0; i < FWD_STAGES; ++i) {
+      mbar_init(&sm.full_k[i], 1);
+      mbar_init(&sm.full_v[i], 1);
+      mbar_init(&sm.empty_k[i], FWD_CONSUMERS / 32);
+      mbar_init(&sm.empty_v[i], FWD_CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= FWD_CONSUMERS) {
+    // producer warpgroup: one thread starts every load
+    regs_dealloc<40>();
+    if (threadIdx.x == FWD_CONSUMERS) {
+      constexpr uint32_t KV_BYTES = FWD_BN * D * sizeof(__nv_bfloat16);
+      Ring ring;
+      for (int i = begin; i < end; ++i) {
+        const FwdItem it = fwd_item(items, i);
+        const int kvh = (it.bh / heads) * kv_heads +
+                        (it.bh % heads) / (heads / kv_heads);
+        // Q of the previous item released (the first passes)
+        mbar_wait(&sm.empty_q, ((i - begin) & 1) ^ 1);
+        mbar_expect_tx(&sm.full_q, FWD_BM * D * sizeof(__nv_bfloat16));
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h)
+          tma_load_3d(sm.q[h], &q_map, &sm.full_q, h * BOX_COLS, it.q0,
+                      it.bh);
+        for (int k0 = it.lo; k0 < it.hi; k0 += FWD_BN) {
+          // a stage is free once both warpgroups released it; the first
+          // round passes
+          mbar_wait(&sm.empty_k[ring.stage], ring.phase ^ 1);
+          mbar_expect_tx(&sm.full_k[ring.stage], KV_BYTES);
+#pragma unroll
+          for (int h = 0; h < HALVES; ++h)
+            tma_load_3d(sm.k[ring.stage][h], &k_map, &sm.full_k[ring.stage],
+                        h * BOX_COLS, k0, kvh);
+          mbar_wait(&sm.empty_v[ring.stage], ring.phase ^ 1);
+          mbar_expect_tx(&sm.full_v[ring.stage], KV_BYTES);
+#pragma unroll
+          for (int h = 0; h < HALVES; ++h)
+            tma_load_3d(sm.v[ring.stage][h], &v_map, &sm.full_v[ring.stage],
+                        h * BOX_COLS, k0, kvh);
+          ring.advance();
+        }
+      }
+    }
+  } else {
+    regs_alloc<232>();
+    const int wg = threadIdx.x / 128;
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 starts first
+    Ring ring;
+    for (int i = begin; i < end; ++i) {
+      mbar_wait(&sm.full_q, (i - begin) & 1);
+      fwd_consume<D>(sm, out, lse, fwd_item(items, i), t_q, t_k, causal,
+                     scale_log2, window, ring, i + 1 == end);
+    }
   }
 }
 
@@ -366,24 +609,74 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 }
 
+// ---- host side -------------------------------------------------------
+
+// cuTensorMapEncodeTiled is a driver-API call; it is reached through the
+// runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The 3-D map (D, rows, matrices) of a contiguous [matrices, rows, D] bf16
+// tensor, read in boxes of 64 columns x box_rows rows of one matrix with
+// the 128-byte swizzle; rows past `rows` read as zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int d, int rows,
+                       int matrices, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)matrices};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {BOX_COLS, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
 int launch(int is_bf16, const void* q, const void* k, const void* v,
-           void* out, void* lse, int batch, int heads, int kv_heads, int t_q,
-           int t_k, int causal, float scale, int window,
-           cudaStream_t stream) {
-  const dim3 grid((t_q + BQ - 1) / BQ, batch * heads);
+           void* out, void* lse, const int* work, int blocks, int batch,
+           int heads, int kv_heads, int t_q, int t_k, int causal, float scale,
+           int window, cudaStream_t stream) {
   cudaError_t err;
   if (is_bf16) {
     using T = __nv_bfloat16;
-    const size_t smem = (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(T);
+    if (work == nullptr || blocks <= 0) return (int)cudaErrorInvalidValue;
+    CUtensorMap q_map, k_map, v_map;
+    if ((err = tensor_map(&q_map, q, D, t_q, batch * heads, FWD_BM)) ||
+        (err = tensor_map(&k_map, k, D, t_k, batch * kv_heads, FWD_BN)) ||
+        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads, FWD_BN)))
+      return (int)err;
+    const size_t smem = fwd_smem_bytes<D>();
     err = allow_smem(flash_fwd_bf16<D>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_fwd_bf16<D><<<grid, MMA_THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), heads, kv_heads, t_q, t_k, causal, scale,
+    // persistent: the work list is dealt to `blocks` blocks, one an SM
+    flash_fwd_bf16<D><<<blocks, FWD_THREADS, smem, stream>>>(
+        q_map, k_map, v_map, static_cast<T*>(out), static_cast<float*>(lse),
+        work, heads, kv_heads, t_q, t_k, causal, scale * 1.4426950408889634f,
         window);
   } else {
+    const dim3 grid((t_q + BQ - 1) / BQ, batch * heads);
     const size_t smem = f32_smem_floats<D>() * sizeof(float);
     err = allow_smem(flash_fwd_f32<D>, smem);
     if (err != cudaSuccess) return (int)err;
@@ -396,25 +689,44 @@ int launch(int is_bf16, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// The kernels are built for sm_90a alone: on any other card, fail loudly.
+cudaError_t check_device() {
+  int dev = 0, major = 0, minor = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&major, cudaDevAttrComputeCapabilityMajor,
+                                 dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&minor, cudaDevAttrComputeCapabilityMinor,
+                                 dev);
+  if (err != cudaSuccess) return err;
+  return major == 9 && minor == 0 ? cudaSuccess
+                                  : cudaErrorNoKernelImageForDevice;
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Returns 0 or the CUDA error
 // of the launch; the caller checks shapes, dtypes, contiguity and
-// alignment.
+// alignment. bf16 also takes the work list (on the card) dealt to
+// `blocks` blocks; float32 ignores both.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* out, void* lse, int batch, int heads,
-                         int kv_heads, int t_q, int t_k, int head_dim,
-                         int is_bf16, int causal, float scale, int window,
-                         void* stream) {
+                         void* out, void* lse, const void* work, int batch,
+                         int heads, int kv_heads, int t_q, int t_k,
+                         int head_dim, int is_bf16, int causal, float scale,
+                         int window, int blocks, void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads ||
       t_q <= 0 || t_k <= 0 || batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t dev = check_device();
+  if (dev != cudaSuccess) return (int)dev;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* w = static_cast<const int*>(work);
   if (head_dim == 128)
-    return launch<128>(is_bf16, q, k, v, out, lse, batch, heads, kv_heads,
-                       t_q, t_k, causal, scale, window, s);
+    return launch<128>(is_bf16, q, k, v, out, lse, w, blocks, batch, heads,
+                       kv_heads, t_q, t_k, causal, scale, window, s);
   if (head_dim == 64)
-    return launch<64>(is_bf16, q, k, v, out, lse, batch, heads, kv_heads,
-                      t_q, t_k, causal, scale, window, s);
+    return launch<64>(is_bf16, q, k, v, out, lse, w, blocks, batch, heads,
+                      kv_heads, t_q, t_k, causal, scale, window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -87,14 +87,57 @@ def test_backward_kernels_match_plain_version(cuda, dtype, shape, causal,
         assert torch.equal(g, a)
 
 
+# the backward's cases, a 17-token prompt (one partly masked tile, as a
+# short prefill gives it) and a B*H whose 256 blocks of 128 query rows
+# take more than one wave of the card's SMs
+FWD_CASES = [case[:3] for case in CASES] + [
+    ((1, 8, 2, 17, 17, 128), True, 0),
+    ((2, 32, 8, 512, 512, 128), True, 0),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_forward_kernel_matches_plain_version(cuda, dtype):
-    q, k, v, _, _ = _inputs(cuda, dtype, 1, 4, 2, 200, 200, 128, 2)
-    out, lse = tattn.flash_forward(q, k, v, True, window=50)
-    ref_out, ref_lse = tattn.flash_attention_reference(q, k, v, True,
-                                                       window=50)
-    assert _rel(out, ref_out) <= REL_TOL[dtype]
+@pytest.mark.parametrize("shape,causal,window", FWD_CASES)
+def test_forward_kernel_matches_plain_version(cuda, dtype, shape, causal,
+                                              window):
+    b, h, hkv, tq, tk, d = shape
+    q, k, v, _, _ = _inputs(cuda, dtype, b, h, hkv, tq, tk, d, 2)
+    before = tattn.LAUNCHES["flash_fwd"]
+    out, lse = tattn.flash_forward(q, k, v, causal, window=window)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES["flash_fwd"] == before + 1
+    ref_out, ref_lse = tattn.flash_attention_reference(q, k, v, causal,
+                                                       window=window)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, tq, 1)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _rel(out, ref_out) <= REL_TOL[dtype], _rel(out, ref_out)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    # no atomics: a second launch gives the same bits
+    again, again_lse = tattn.flash_forward(q, k, v, causal, window=window)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+def test_forward_walks_the_host_work_list_from_any_stream(cuda):
+    """The bf16 kernel takes its work list from the host: made once per
+    shape (flash_forward_schedule dealt over the card's SMs), copied to
+    the card, and read from whatever stream launches the kernel."""
+    q, k, v, _, _ = _inputs(cuda, torch.bfloat16, 1, 4, 2, 300, 300, 128, 8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out, lse = tattn.flash_forward(q, k, v, True)
+    torch.cuda.current_stream().wait_stream(side)
+    work, blocks = tattn._forward_work_on(q.device, 4, 300, 300, True, 0)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    schedule = tattn.flash_forward_schedule(4, 300, 300, True, 0, sms)
+    assert blocks == len(schedule)
+    assert work.dtype == torch.int32 and work.device == q.device
+    assert work.tolist() == tattn.flash_forward_work(schedule)
+    assert tattn._forward_work_on(q.device, 4, 300, 300, True, 0)[0] is work
+    ref_out, ref_lse = tattn.flash_attention_reference(q, k, v, True)
+    assert _rel(out, ref_out) <= REL_TOL[torch.bfloat16]
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
