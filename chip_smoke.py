@@ -19,8 +19,10 @@ nonzero and prints no result:
 5. sharing: two tenants' decode servers under ``ChipExecutor``.
 6. backward kernels: dq and dk/dv against their plain version on the
    card at phase 2's shapes (some with an lse cotangent), bit-identical
-   on a second launch; timings at the 8B shape; then all three kernels
-   timed against their bounds at six shapes around it.
+   on a second launch; at the 8B shape dq, dk/dv and SDPA's backward
+   timed in turns; then at six shapes around it all three kernels
+   against their bounds, and one whole ``flash_backward`` (delta' and
+   both kernels) in turns with SDPA's backward.
 7. training: ``llama_loss`` under ``make_train_step`` (Adam) at
    Llama-3-8B width, 4 layers, on [1, 2049] tokens: gradients against
    plain attention, kernel launches per step (also with remat, and at
@@ -262,6 +264,23 @@ def main() -> int:
         return {"kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
                 "top": [[name[:90], ms] for name, ms in top]}
 
+    def sdpa_backward(q, k, v, do, causal, window=0):
+        """A call of SDPA's backward alone (dq, dk and dv of one forward
+        kept for it), the yardstick of the backward kernels. A window is
+        an explicit mask: SDPA has no window of its own."""
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        mask = None
+        if window:
+            t_q, t_k = q.shape[2], k.shape[2]
+            pos = torch.arange(t_q, device=q.device)[:, None] + t_k - t_q
+            key = torch.arange(t_k, device=q.device)[None, :]
+            mask = (key <= pos) & (key > pos - window)
+        out = F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        return lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                           retain_graph=True)
+
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=device).to(dtype)
 
@@ -319,7 +338,6 @@ def main() -> int:
                 "source": "kubeshare_tpu_torch/ops/csrc/flash_fwd.cu",
                 # _flash_kernel
                 "replaces": "kubeshare_tpu/ops/attention.py:121",
-                "shape": list(shape), "dtype": dtype_name,
                 "max_abs_err": err_out,
                 "ms": ms["kernel"],
                 "plain_ms": cuda_ms(lambda: flash_attention_reference(
@@ -327,7 +345,8 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": ms["sdpa"],
             }
-            emit({"phase": "kernel_timing_fwd", **kernel_row,
+            emit({"phase": "kernel_timing_fwd", "shape": list(shape),
+                  "dtype": dtype_name, **kernel_row,
                   "ms_over_library": ms["kernel"] / ms["sdpa"],
                   "share_of_bound": bound_ms / ms["kernel"],
                   "timing": "median of 7 rounds of 20 back-to-back "
@@ -540,19 +559,24 @@ def main() -> int:
             plain_ms = cuda_ms(lambda: flash_backward_reference(
                 q, k, v, out, lse, do, None, causal, None, window), 5,
                 warmup=1)
-            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    qg, kg, vg, is_causal=causal, enable_gqa=True)
-
-            sdpa_fwd_ms = cuda_ms(sdpa, 20)
-            sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-                sdpa(), (qg, kg, vg), do), 20) - sdpa_fwd_ms
-            for name, kind, fn, err in (
-                    ("flash_bwd_dq", "bwd_dq", attn._flash_bwd_dq_cuda,
-                     abs_err["dq"]),
-                    ("flash_bwd_dkv", "bwd_dkv", attn._flash_bwd_dkv_cuda,
+            # one timing per call moves: dq, dk/dv and SDPA's backward
+            # (dq, dk and dv together) take turns
+            ms = interleaved_ms({
+                "flash_bwd_dq": lambda: attn._flash_bwd_dq_cuda(
+                    *dq_in, *timing_args),
+                "flash_bwd_dkv": lambda: attn._flash_bwd_dkv_cuda(
+                    *dq_in, *timing_args),
+                "sdpa_bwd": sdpa_backward(q, k, v, do, causal)})
+            emit({"phase": "kernel_timing_bwd", "shape": list(shape),
+                  "dtype": dtype_name, "ms": ms,
+                  "dq_plus_dkv_over_library": (ms["flash_bwd_dq"]
+                                               + ms["flash_bwd_dkv"])
+                  / ms["sdpa_bwd"],
+                  "timing": "median of 7 rounds of 20 back-to-back "
+                            "launches queued behind a sleep, in turns"})
+            for name, kind, err in (
+                    ("flash_bwd_dq", "bwd_dq", abs_err["dq"]),
+                    ("flash_bwd_dkv", "bwd_dkv",
                      max(abs_err["dk"], abs_err["dv"]))):
                 bound_ms, bound_by = flash_bound_ms(shape, dtype_name,
                                                     causal, window, kind)
@@ -563,24 +587,23 @@ def main() -> int:
                     "replaces": ("kubeshare_tpu/ops/attention.py:300"
                                  if kind == "bwd_dq" else
                                  "kubeshare_tpu/ops/attention.py:348"),
-                    "shape": list(shape), "dtype": dtype_name,
                     "max_abs_err": err,
-                    "ms": cuda_ms(lambda: fn(*dq_in, *timing_args), 20),
+                    "ms": ms[name],
                     # one plain function computes dq, dk and dv together
                     "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    # SDPA's backward (dq, dk and dv together):
-                    # fwd+bwd less fwd
-                    "library_ms": sdpa_bwd_ms,
+                    # SDPA's backward (dq, dk and dv together)
+                    "library_ms": ms["sdpa_bwd"],
                 }
-            del qg, kg, vg, dq_in
+            del dq_in
         del q, k, v, do, g_lse, out, lse, got, again, want
     torch.cuda.empty_cache()
 
     # the three kernels' times as the shape moves one thing at a time
     # from the 8B one: the mask (non-causal does twice the causal work;
     # a window about the same work on every key tile), no GQA grouping,
-    # the length, the batch. bf16, head dim 128.
+    # the length, the batch. bf16, head dim 128. The whole backward and
+    # SDPA's take turns.
     for batch, heads, kv_heads, t, causal, window in (
             (1, 32, 8, 2048, True, 0), (1, 32, 8, 2048, False, 0),
             (1, 32, 8, 2048, True, 1024), (1, 32, 32, 2048, True, 0),
@@ -601,12 +624,19 @@ def main() -> int:
                                  20)}
         bound = {kind: flash_bound_ms(shape, "bfloat16", causal, window,
                                       kind)[0] for kind in ms}
+        backward = interleaved_ms({
+            "flash_backward": lambda: flash_backward(
+                q, k, v, out, lse, do, None, causal, None, window),
+            "sdpa_bwd": sdpa_backward(q, k, v, do, causal, window)})
         emit({"phase": "kernel_timing", "shape": list(shape),
               "causal": causal, "window": window, "ms": ms,
               "bound_ms": bound,
               "share_of_bound": {kind: bound[kind] / ms[kind]
-                                 for kind in ms}})
-        del q, k, v, do, out, lse, bwd_in
+                                 for kind in ms},
+              "backward_ms": backward,
+              "backward_over_sdpa": backward["flash_backward"]
+              / backward["sdpa_bwd"]})
+        del q, k, v, do, out, lse, bwd_in, backward
     torch.cuda.empty_cache()
 
     # ---- 7. training at Llama-3-8B width --------------------------------

@@ -29,16 +29,23 @@ _NEG_INF = -1e30
 # Head dims the CUDA kernels are compiled for (a template argument of
 # csrc/flash_*.cu). On CUDA tensors any other head dim raises.
 FLASH_HEAD_DIMS = (64, 128)
-# The key-tile width of the backward kernels and the float32 forward (BK
-# in csrc/flash_common.cuh). The plain versions walk the same tiles, so
-# the float32 forward's online-softmax rescaling happens at the same
-# places; the bf16 forward rescales every FLASH_FWD_BLOCK_K keys, which
-# moves where P is rounded to bf16 but not the function.
+# The key-tile width of the float32 kernels (BK in csrc/flash_common.cuh).
+# The plain versions walk the same tiles, so the float32 forward's
+# online-softmax rescaling happens at the same places; the bf16 forward
+# rescales every FLASH_FWD_BLOCK_K keys, which moves where P is rounded to
+# bf16 but not the function.
 FLASH_BLOCK_K = 64
 # The bf16 forward kernel's tiles (FWD_BM, FWD_BN in csrc/flash_fwd.cu):
 # query rows per block (two warpgroups of 64) and keys per K/V tile.
 FLASH_FWD_BLOCK_Q = 128
 FLASH_FWD_BLOCK_K = 128
+# The bf16 backward kernels' tiles (csrc/flash_bwd.cu). dq takes the
+# forward's items of FLASH_FWD_BLOCK_Q rows with K/V tiles of
+# FLASH_DQ_BLOCK_K keys (DQ_BN); dk/dv items of FLASH_DKV_BLOCK_K keys
+# (DKV_BN) with q tiles of FLASH_DKV_BLOCK_Q rows (DKV_BM).
+FLASH_DQ_BLOCK_K = 64
+FLASH_DKV_BLOCK_K = 128
+FLASH_DKV_BLOCK_Q = 64
 
 # Launches of each kernel, counted by its wrapper where it launches.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -129,61 +136,131 @@ def _key_range(q_first: int, q_last: int, t_k: int, causal: bool,
     return lo, hi
 
 
+def _snake(items, sms: int):
+    """Deal ``items`` (a list, longest first) over ``min(len, sms)``
+    blocks in a snake: round r gives block b item ``r*G + b`` (r even) or
+    ``r*G + G - 1 - b`` (r odd). Each block takes its items in list
+    order, so any two blocks' work stays within one item of even."""
+    grid = min(len(items), sms)
+    blocks = [[] for _ in range(grid)]
+    for r in range(-(-len(items) // grid) if grid else 0):
+        for b in range(grid):
+            i = r * grid + (grid - 1 - b if r % 2 else b)
+            if i < len(items):
+                blocks[b].append(items[i])
+    return blocks
+
+
 def flash_forward_schedule(batch_heads: int, t_q: int, t_k: int,
                            causal: bool = True, window: int = 0,
-                           sms: int = 132):
-    """The bf16 forward kernel's work, block by block: one list of
+                           sms: int = 132,
+                           block_k: int = FLASH_FWD_BLOCK_K):
+    """The work of the bf16 forward kernel (and, with ``block_k`` =
+    FLASH_DQ_BLOCK_K, of the bf16 dq kernel), block by block: one list of
     ``(bh, q0, lo, hi)`` items per block of its persistent grid
     (``min(items, sms)`` blocks, one per SM), in the order the block takes
     them. The items, (head, q tile of FLASH_FWD_BLOCK_Q rows) pairs, are
     sorted longest first (item i is q tile ``n_qt - 1 - i // (B*H)`` of
-    head ``i % (B*H)``) and dealt in a snake: round r gives block b item
-    ``r*G + b`` (r even) or ``r*G + G - 1 - b`` (r odd). Each item loads
-    key tiles of FLASH_FWD_BLOCK_K from ``lo`` (aligned) to ``hi``. The
-    kernel walks exactly this (``flash_forward_work`` encodes it)."""
-    bq, bk = FLASH_FWD_BLOCK_Q, FLASH_FWD_BLOCK_K
+    head ``i % (B*H)``) and dealt in a snake (``_snake``). Each item loads
+    key tiles of ``block_k`` from ``lo`` (aligned) to ``hi``. The kernel
+    walks exactly this (``flash_work`` encodes it)."""
+    bq = FLASH_FWD_BLOCK_Q
     n_qt = -(-t_q // bq)
-    n_items = n_qt * batch_heads
-    grid = min(n_items, sms)
     offset = t_k - t_q if causal else 0
-    blocks = [[] for _ in range(grid)]
-    for r in range(-(-n_items // grid)):
-        for b in range(grid):
-            item = r * grid + (grid - 1 - b if r % 2 else b)
-            if item >= n_items:
-                continue
-            bh, q0 = item % batch_heads, (n_qt - 1 - item // batch_heads) * bq
-            lo, hi = _key_range(q0 + offset, min(q0 + bq, t_q) - 1 + offset,
-                                t_k, causal, window)
-            blocks[b].append((bh, q0, lo - lo % bk, hi))
-    return blocks
+    items = []
+    for i in range(n_qt * batch_heads):
+        bh, q0 = i % batch_heads, (n_qt - 1 - i // batch_heads) * bq
+        lo, hi = _key_range(q0 + offset, min(q0 + bq, t_q) - 1 + offset,
+                            t_k, causal, window)
+        items.append((bh, q0, lo - lo % block_k, hi))
+    return _snake(items, sms)
 
 
-def flash_forward_work(blocks):
-    """A ``flash_forward_schedule`` as the flat int list the bf16 kernel
-    takes (``FwdItem`` in ``csrc/flash_fwd.cu``): G + 1 offsets, block b
-    taking items ``offsets[b]`` to ``offsets[b + 1] - 1``, then
-    ``bh, q0, lo, hi`` for each item, block after block."""
+def _row_range(k_first: int, k_last: int, t_q: int, t_k: int, causal: bool,
+               window: int) -> Tuple[int, int]:
+    """Query rows [lo, hi) that can see any key at positions
+    k_first..k_last: the dk/dv loop bounds (rows outside them give
+    P = 0)."""
+    lo, hi = 0, t_q
+    if causal:
+        offset = t_k - t_q
+        lo = max(0, k_first - offset)
+        if window > 0:
+            hi = min(t_q, k_last + window - offset)
+    return lo, hi
+
+
+def flash_backward_schedule(batch_kv_heads: int, reps: int, t_q: int,
+                            t_k: int, causal: bool = True, window: int = 0,
+                            sms: int = 132):
+    """The bf16 dk/dv kernel's work, block by block: one list of
+    ``(bkv, k0, r, lo, hi)`` items per block of its persistent grid, in
+    the order the block takes them. An item is key tile k0 (of
+    FLASH_DKV_BLOCK_K keys) of kv head ``bkv`` with query head ``r`` of
+    its group of ``reps``, and the query rows [lo, hi) that can see the
+    tile (lo aligned to FLASH_DKV_BLOCK_Q; ``lo == hi`` when none can:
+    the item then writes zeros). Items are sorted longest first (most q
+    tiles), ties by (tile, kv head, r), so item (tile, r) always precedes
+    (tile, r + 1), which waits for it to add its part of the group's sum;
+    they are dealt in a snake (``_snake``)."""
+    bq, bk = FLASH_DKV_BLOCK_Q, FLASH_DKV_BLOCK_K
+    keyed = []
+    for kt in range(-(-t_k // bk)):
+        k0 = kt * bk
+        lo, hi = _row_range(k0, min(k0 + bk, t_k) - 1, t_q, t_k, causal,
+                            window)
+        lo, hi = (lo - lo % bq, hi) if hi > lo else (0, 0)
+        n = -(-(hi - lo) // bq)
+        for bkv in range(batch_kv_heads):
+            for r in range(reps):
+                keyed.append(((-n, kt, bkv, r), (bkv, k0, r, lo, hi)))
+    keyed.sort()
+    return _snake([item for _, item in keyed], sms)
+
+
+def flash_work(blocks):
+    """A schedule (``flash_forward_schedule``, ``flash_backward_schedule``)
+    as the flat int list a bf16 kernel takes (``QItem``, ``KvItem`` in
+    ``csrc/flash_*.cu``): G + 1 offsets, block b taking items
+    ``offsets[b]`` to ``offsets[b + 1] - 1``, then each item's ints, block
+    after block."""
     offsets = [0]
     for block in blocks:
         offsets.append(offsets[-1] + len(block))
     return offsets + [x for block in blocks for item in block for x in item]
 
 
-@functools.lru_cache(maxsize=64)
-def _forward_work_on(device: torch.device, batch_heads: int, t_q: int,
-                     t_k: int, causal: bool, window: int):
-    """``(work list on device, blocks)`` for one shape, made once: the
-    list is built on the host and copied to the card."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = flash_forward_schedule(batch_heads, t_q, t_k, causal, window,
-                                    sms)
-    work = torch.tensor(flash_forward_work(blocks), dtype=torch.int32,
-                        device=device)
+def _work_on(device: torch.device, blocks):
+    """``(work list on device, blocks)``: the list built on the host and
+    copied to the card."""
+    work = torch.tensor(flash_work(blocks), dtype=torch.int32, device=device)
     # a copy from pageable memory may still be in flight when tensor()
     # returns: finish it before any stream reads the list
     torch.cuda.synchronize(device)
     return work, len(blocks)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _forward_work_on(device: torch.device, batch_heads: int, t_q: int,
+                     t_k: int, causal: bool, window: int,
+                     block_k: int = FLASH_FWD_BLOCK_K):
+    """The forward's (or, with ``block_k`` = FLASH_DQ_BLOCK_K, dq's) work
+    list on the card for one shape, made once."""
+    return _work_on(device, flash_forward_schedule(
+        batch_heads, t_q, t_k, causal, window, _sms(device), block_k))
+
+
+@functools.lru_cache(maxsize=64)
+def _backward_work_on(device: torch.device, batch_kv_heads: int, reps: int,
+                      t_q: int, t_k: int, causal: bool, window: int):
+    """The dk/dv kernel's work list on the card for one shape, made
+    once."""
+    return _work_on(device, flash_backward_schedule(
+        batch_kv_heads, reps, t_q, t_k, causal, window, _sms(device)))
 
 
 def flash_attention_reference(q, k, v, causal: bool = True,
@@ -365,17 +442,46 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float,
                        window: int):
     """dq by the ``flash_bwd_dq`` kernel (checked inputs, delta')."""
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", _bind("flash_bwd", "flash_bwd_dq", 7), q, k,
-            (q, k, v, do, lse, delta, dq), causal, scale, window)
+    work, blocks = None, 0   # the float32 kernel has a one-shot grid
+    if q.dtype == torch.bfloat16:
+        work, blocks = _forward_work_on(
+            q.device, q.shape[0] * q.shape[1], q.shape[2], k.shape[2],
+            causal, window, FLASH_DQ_BLOCK_K)
+    _launch("flash_bwd_dq", _bind("flash_bwd", "flash_bwd_dq", 8, n_extra=1),
+            q, k, (q, k, v, do, lse, delta, dq, work), causal, scale, window,
+            blocks)
     return dq
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float,
                         window: int):
-    """(dk, dv) by the ``flash_bwd_dkv`` kernel (checked inputs, delta')."""
+    """(dk, dv) by the ``flash_bwd_dkv`` kernel (checked inputs, delta').
+    For bf16 with more than one query head per kv head, the group's
+    ordered sum needs a float32 scratch and a zeroed counter per
+    (kv head, key tile), made here for each call."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", _bind("flash_bwd", "flash_bwd_dkv", 8), q, k,
-            (q, k, v, do, lse, delta, dk, dv), causal, scale, window)
+    work = scratch = counters = None
+    blocks = 0
+    batch, kv_heads, t_k, head_dim = k.shape
+    reps = q.shape[1] // kv_heads
+    if q.dtype == torch.bfloat16:
+        work, blocks = _backward_work_on(q.device, batch * kv_heads, reps,
+                                         q.shape[2], t_k, causal, window)
+        # the kernel reads lse and delta' rows in TMA boxes that must start
+        # 16-byte aligned: rows padded to a multiple of 4 floats
+        pad = -q.shape[2] % 4
+        if pad:
+            lse, delta = (torch.nn.functional.pad(
+                x.reshape(-1, q.shape[2]), (0, pad)) for x in (lse, delta))
+        if reps > 1:
+            tiles = batch * kv_heads * -(-t_k // FLASH_DKV_BLOCK_K)
+            counters = torch.zeros(tiles, dtype=torch.int32, device=q.device)
+            scratch = torch.empty(tiles * 2 * FLASH_DKV_BLOCK_K * head_dim,
+                                  dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dkv",
+            _bind("flash_bwd", "flash_bwd_dkv", 11, n_extra=1), q, k,
+            (q, k, v, do, lse, delta, dk, dv, work, scratch, counters),
+            causal, scale, window, blocks)
     return dk, dv
 
 
@@ -393,6 +499,8 @@ def _flash_backward_cuda(q, k, v, out, lse, do, g_lse, causal: bool,
     _check_kernel_args(q=q, k=k, v=v, do=do)
     delta = _flash_delta(out, do, g_lse).contiguous()
     lse = lse.to(torch.float32).contiguous()
+    if lse.data_ptr() % 16:   # the kernels read lse rows through TMA
+        lse = lse.clone()
     dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, window)
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
                                  window)

@@ -16,60 +16,814 @@
 //
 // Layout. q, dO [B*H, Tq, D], k/v [B*Hkv, Tk, D], lse and delta' [B*H, Tq]
 // float32; dq like q, dk/dv like k; all contiguous and 16-byte aligned.
-//
-// dq: one block per (b*h, 64-row q tile), a loop over 64-key K/V tiles
-// with bounds from the diagonal and the window (key_range); the kv head
-// comes from blockIdx, so K/V are never repeated. dq accumulates in
-// float32 registers and is written once, in q's dtype.
-// dkv: one block per (b*kv-head, 64-key tile). It loops over the group's
-// H/Hkv query heads and, for each, over the q tiles that can see the key
-// tile (the reference's (qb * BQ) mod Tq wrap, done as a loop), so dk/dv
-// come out grouped, with no repeated K/V. dK and dV accumulate in float32
-// and are cast to k/v's dtype at the end. No atomics anywhere: two runs on
-// the same inputs give identical bits.
+// The kv head of query head bh is (bh / H) * Hkv + (bh % H) / (H / Hkv):
+// K/V are never repeated, and dk/dv sum a group's H / Hkv query heads.
 //
 // Numerics kept from the reference: masked scores -1e30 (P = 0 there);
 // products of input-dtype values accumulated in float32; P rounded to
 // dO's dtype before P^T dO, dS to k's dtype before dS K and to q's dtype
-// before dS^T Q. Ragged edges: rows past Tq and keys past Tk are
-// zero-filled, masked and not written.
+// before dS^T Q; dk and dv summed over the group in float32, then cast.
+// Ragged edges: rows past Tq and keys past Tk are zero-filled, masked and
+// not written. No atomics whose order varies: two launches on the same
+// inputs give the same bits.
 //
-// What bounds them on the H100. At the Llama-3-8B smoke shape (B=1,
-// H=32, Hkv=8, T=2048, D=128, causal, bf16; 67.1 M visible pairs) dq does
-// 6 D operations per visible pair (three products: Q K^T, dO V^T, dS K),
-// 51.6 GFLOP, and dkv 8 D (four products), 68.7 GFLOP, against about
-// 60 MB of traffic each: 0.052 and 0.070 ms at 989 TFLOP/s of bf16
-// tensor-core peak, 0.018 ms at 3.35 TB/s. Both are bound by operations,
-// so the bf16 kernels run every product on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, float32 accumulators), 4 warps of 16 rows
-// (dq: query rows; dkv: keys). Operands are staged in padded shared
-// memory and fed with ldmatrix; the S and dP accumulators are re-packed
-// in registers as the A operand of the next product; the next tile is
-// fetched with cp.async while the current one computes. In dkv the two
-// [16, D] float32 accumulators per warp take 2 D / 8 registers a thread
-// (64 at D = 128 each), so its inner q tiles are 32 rows, which keeps the
-// score and dP fragments at 16 registers each and nothing spills. float32
-// inputs have no tensor-core path with float32 products, so the float32
-// kernels use FMAs on the CUDA cores. wgmma, TMA and a single pass with
-// atomic dq are later steps (ROADMAP Queue 2).
+// What bounds them on the H100. At the Llama-3-8B shape (B=1, H=32,
+// Hkv=8, T=2048, D=128, causal, bf16; 67.1 M visible pairs) dq does 6 D
+// operations per visible pair (Q K^T, dO V^T, dS K), 51.6 GFLOP, and dkv
+// 8 D (Q K^T, dO V^T, P^T dO, dS^T Q), 68.7 GFLOP, against about 60 MB of
+// traffic each: 0.052 and 0.070 ms at 989 TFLOP/s of bf16 tensor-core
+// peak, 0.018 ms at 3.35 TB/s. Both are bound by operations, and on
+// Hopper only wgmma fed from shared memory that TMA filled reaches that
+// peak. The mma.sync kernels these replaced reached 21 % (dq) and 12 %
+// (dkv) of the bound: 4 warps of 16 rows ran each product and then the
+// softmax in turn, every thread spent registers and instructions on
+// cp.async addresses, and dkv walked all of a GQA group's heads in one
+// block per key tile, so under a causal mask key tile 0 walked 4 x 2048
+// rows while the last walked 4 x 64: the kernel took as long as the
+// non-causal one, which does twice the work.
+//
+// The bf16 kernels are warp-specialised, after FlashAttention-3's
+// backward, with the forward's tools (hopper.cuh):
+// - 384 threads: two consumer warpgroups and a producer warpgroup whose
+//   first thread starts every TMA load (3-D tensor maps: rows past a
+//   ragged T are zero-filled inside their own head) and which gives its
+//   registers (setmaxnreg, 24 against the consumers' 240) away. The tiles
+//   an item keeps (dq: Q and dO; dkv: K and V) are double-buffered, so
+//   the next item's load overlaps this one; the tiles it streams go
+//   through a ring with full/empty mbarriers: 3 stages in dq, where 2
+//   left the loads' latency exposed, and 2 in dkv, where 3 were no
+//   faster (timed on an H100; PERF.md section 6).
+// - A persistent grid, one block per SM, walks work items built on the
+//   host (flash_forward_schedule and flash_backward_schedule in
+//   ../attention.py): longest first, dealt in a snake, so each block's
+//   work is even to within one item.
+// - dq: an item is (b*h, 128 query rows, their keys): the forward's items,
+//   with 64-key K/V tiles. Each consumer warpgroup owns 64 rows:
+//   S = Q K^T and dP = dO V^T are wgmma with both operands in 128-byte-
+//   swizzled shared memory; P and dS = P (dP - delta') are formed in
+//   registers (an FFMA and an ex2 each) and dS packed to bf16 A
+//   fragments; dQ += dS K is a wgmma with dS from registers and K read
+//   MN-major (the transpose bit) from the tile that fed S. dS K of tile j
+//   runs while S and dP of tile j + 1 are formed. 64-key tiles keep S, dP,
+//   dQ and the dS fragments at 32 + 32 + 64 + 16 registers a thread at
+//   D = 128; 128-key tiles would not fit.
+// - dkv: an item is (b*kv head, 128 keys, ONE query head r of the group)
+//   with the 64-row q tiles that see its keys: splitting the group by head
+//   makes the longest item one head's rows, so the snake can even the
+//   blocks out. Each consumer warpgroup owns 64 keys: S^T = K Q^T and
+//   dP^T = V dO^T (wgmma SS); P^T and dS^T in registers, where lse and
+//   delta' are per column, read from shared memory (1-D TMA boxes of the
+//   q tile's 64 rows, from rows the caller pads to a multiple of 4 so
+//   that every box starts 16-byte aligned; an unaligned start faulted);
+//   dV += P^T dO and dK += dS^T Q (wgmma RS, dO and Q read MN-major
+//   from the tiles that fed the first two). dV runs while dS^T is
+//   formed.
+// - The group's sum is ordered, so it stays deterministic: item r of a
+//   (b*kv head, key tile) waits on the tile's counter until items 0..r-1
+//   are done, adds its float32 partial to theirs in a scratch buffer
+//   (laid out as the accumulators are, so each thread moves whole float4s)
+//   and releases the counter to r + 1; the last item scales, casts and
+//   writes dk and dv. With one head per group an item writes directly.
+//   This cannot deadlock because (a) every block walks its items in
+//   increasing list order; (b) item r waits only on item r - 1 of its
+//   tile, which the list puts earlier (items of equal length are ordered
+//   by tile, then r); and (c) the grid is at most one block per SM (the
+//   shared memory allows no second), so every block is resident or gets
+//   an SM that a finished block frees: the earliest unfinished item of
+//   the list can always run.
+// - Tiles that no pair of a warpgroup's rows and keys can see (the far
+//   side of the causal diagonal, beyond a window) are skipped, not
+//   masked; the per-element mask runs only on tiles some pair of which is
+//   hidden.
+// float32 inputs have no tensor-core path with float32 products (TF32
+// would change the numbers), so the float32 kernels use FMAs on the CUDA
+// cores.
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ2 = 32;  // dkv (bf16): query rows per inner q tile
+// ---- bf16: TMA, wgmma, warp-specialised consumers -----------------------
+
+constexpr int BWD_THREADS = 384;    // consumer warpgroups 0, 1; producer 2
+constexpr int BWD_CONSUMERS = 256;  // threads of the consumer warpgroups
+constexpr int DQ_STAGES = 3;        // dq: depth of the K/V ring
+constexpr int DKV_STAGES = 2;       // dkv: depth of the q-tile ring
+constexpr int DQ_BM = 128;          // dq: query rows per item
+constexpr int DQ_BN = 64;           // dq: keys per K/V tile
+constexpr int DKV_BN = 128;         // dkv: keys per item
+constexpr int DKV_BM = 64;          // dkv: query rows per q tile
+// registers a thread after setmaxnreg: the launch gives each of the 384
+// threads 168 (65536 / 384, rounded down to 8), and the warpgroups' sum
+// stays 168 * 384 = 24 * 128 + 240 * 256
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+
+using DqRing = Ring<DQ_STAGES>;    // dq's K/V tiles
+using DkvRing = Ring<DKV_STAGES>;  // dkv's q tiles
+using ItemRing = Ring<2>;          // the tiles an item keeps
+
+// Tiles as D / 64 column halves of [rows][64] bf16 (hopper.cuh); every
+// half is a multiple of 1024 bytes, so all start on the swizzle's period.
+template <int D>
+struct DqSmem {
+  static constexpr int HALVES = D / BOX_COLS;
+  __nv_bfloat16 q[2][HALVES][DQ_BM * BOX_COLS];
+  __nv_bfloat16 dout[2][HALVES][DQ_BM * BOX_COLS];
+  __nv_bfloat16 k[DQ_STAGES][HALVES][DQ_BN * BOX_COLS];
+  __nv_bfloat16 v[DQ_STAGES][HALVES][DQ_BN * BOX_COLS];
+  uint64_t full_q[2], empty_q[2], full_k[DQ_STAGES], full_v[DQ_STAGES];
+  uint64_t empty_k[DQ_STAGES], empty_v[DQ_STAGES];
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr int HALVES = D / BOX_COLS;
+  __nv_bfloat16 k[2][HALVES][DKV_BN * BOX_COLS];
+  __nv_bfloat16 v[2][HALVES][DKV_BN * BOX_COLS];
+  __nv_bfloat16 q[DKV_STAGES][HALVES][DKV_BM * BOX_COLS];
+  __nv_bfloat16 dout[DKV_STAGES][HALVES][DKV_BM * BOX_COLS];
+  float lse[DKV_STAGES][DKV_BM];  // the q tile's rows (TMA: 128-aligned)
+  float delta[DKV_STAGES][DKV_BM];
+  uint64_t full_kv[2], empty_kv[2], full_q[DKV_STAGES], empty_q[DKV_STAGES];
+};
+
+// the two consumer warpgroups (named barrier 1)
+__device__ __forceinline__ void consumers_sync() {
+  __syncwarp();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(BWD_CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// An accumulator (N float32 a thread, N / 4 chunks of 8 columns) rounded
+// to bf16 as the A fragments of a register-sourced product: k step kk
+// takes chunks 2 kk and 2 kk + 1.
+template <int N>
+__device__ __forceinline__ void pack_frags(const float (&x)[N],
+                                           uint32_t (&f)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    f[j / 2][(j % 2) * 2] = pack_bf16(x[4 * j], x[4 * j + 1]);  // row g
+    f[j / 2][(j % 2) * 2 + 1] =
+        pack_bf16(x[4 * j + 2], x[4 * j + 3]);  // row g + 8
+  }
+}
+
+// ---- dq ----------------------------------------------------------------
+
+// One work item of the host's list: query head bh, its DQ_BM-row q tile at
+// q0, and the keys [lo, hi) its rows can see (lo a multiple of DQ_BN).
+// The list is int32: G + 1 offsets (block b takes items offsets[b] to
+// offsets[b + 1] - 1, in that order), then four ints an item.
+struct QItem {
+  int bh, q0, lo, hi;
+};
+
+__device__ __forceinline__ QItem q_item(const int* __restrict__ items,
+                                        int i) {
+  const int* p = items + 4 * i;
+  return {p[0], p[1], p[2], p[3]};
+}
+
+// One consumer warpgroup of dq: 64 query rows, their positions, lse (in
+// log2 units) and delta', and the products of one K/V tile.
+template <int D>
+struct DqRows {
+  static constexpr int NS = DQ_BN / 2;  // S and dP accumulators a thread
+  static constexpr int NO = D / 2;      // dQ accumulators a thread
+  DqSmem<D>& sm;
+  int wg, qst, qpos0, qpos1, first, last, t_k, causal, window;
+  float scale_log2, lse0, lse1, del0, del1;
+
+  // S = Q K^T and dP = dO V^T of the tile in `stage`, started, not
+  // committed; k step kk: 16 columns at 32 bytes into half kk / 4
+  __device__ __forceinline__ void start_s_dp(float (&s)[NS], float (&dp)[NS],
+                                             int stage) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = wg * 64 * BOX_COLS + (kk % 4) * 16;
+      WgmmaSS<DQ_BN>::run(
+          s, sw128_desc(sm.q[qst][kk / 4] + at, 16, 1024),
+          sw128_desc(sm.k[stage][kk / 4] + (kk % 4) * 16, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = wg * 64 * BOX_COLS + (kk % 4) * 16;
+      WgmmaSS<DQ_BN>::run(
+          dp, sw128_desc(sm.dout[qst][kk / 4] + at, 16, 1024),
+          sw128_desc(sm.v[stage][kk / 4] + (kk % 4) * 16, 16, 1024), kk > 0);
+    }
+  }
+
+  // dQ += dS K of the tile in `stage`, started, not committed. K is the
+  // MN-major B (the transpose bit): keys 16 kk .. 16 kk + 15 are 16 rows
+  // (2048 bytes) into each half, the next 64 columns one half on.
+  __device__ __forceinline__ void start_dq(float (&dq)[NO],
+                                           const uint32_t (&dsf)[NS / 8][4],
+                                           int stage) {
+#pragma unroll
+    for (int kk = 0; kk < DQ_BN / 16; ++kk)
+      WgmmaRS<D>::run(dq, dsf[kk],
+                      sw128_desc(sm.k[stage][0] + kk * 16 * BOX_COLS,
+                                 DQ_BN * 128, 1024));
+  }
+
+  // dS = P (dP - delta') in place of dP, with P = 2^(S scale log2 e -
+  // lse log2 e), 0 where masked, for the tile of keys at k0
+  __device__ __forceinline__ void grad(const float (&s)[NS], float (&dp)[NS],
+                                       int k0, int tig) const {
+    const bool whole = k0 + DQ_BN <= t_k &&
+                       (!causal || (k0 + DQ_BN - 1 <= first &&
+                                    (window <= 0 || k0 > last - window)));
+#pragma unroll
+    for (int j = 0; j < DQ_BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + j * 8 + 2 * tig + e;
+        const bool v0 = whole || visible(qpos0, kpos, t_k, causal, window);
+        const bool v1 = whole || visible(qpos1, kpos, t_k, causal, window);
+        const float p0 =
+            v0 ? exp2_approx(fmaf(s[4 * j + e], scale_log2, -lse0)) : 0.f;
+        const float p1 =
+            v1 ? exp2_approx(fmaf(s[4 * j + 2 + e], scale_log2, -lse1)) : 0.f;
+        dp[4 * j + e] = p0 * (dp[4 * j + e] - del0);
+        dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - del1);
+      }
+    }
+  }
+};
+
+// One dq work item for the two consumer warpgroups. Rows past Tq hold
+// zeros and lse = delta' = 0, so their dS is 0 with no mask.
+template <int D>
+__device__ __forceinline__ void dq_consume(
+    DqSmem<D>& sm, int qst, __nv_bfloat16* __restrict__ dq,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const QItem& it, int t_q, int t_k, int causal, float scale,
+    float scale_log2, int window, DqRing& ring) {
+  using Rows = DqRows<D>;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int offset = causal ? t_k - t_q : 0;
+  const int row0 = it.q0 + wg * 64 + warp * 16 + g, row1 = row0 + 8;
+  const int wg_row = it.q0 + wg * 64;
+  const size_t at = (size_t)it.bh * t_q;
+  Rows rows{sm,
+                  wg,
+                  qst,
+                  row0 + offset,
+                  row1 + offset,
+                  wg_row + offset,
+                  min(wg_row + 64, t_q) - 1 + offset,
+                  t_k,
+                  causal,
+                  window,
+                  scale_log2,
+                  row0 < t_q ? lse[at + row0] * LOG2E : 0.f,
+                  row1 < t_q ? lse[at + row1] * LOG2E : 0.f,
+                  row0 < t_q ? delta[at + row0] : 0.f,
+                  row1 < t_q ? delta[at + row1] : 0.f};
+  // the item's key tiles j < n; this warpgroup's rows see only [jlo, jhi)
+  const int n = (it.hi - it.lo + DQ_BN - 1) / DQ_BN;
+  int jlo = 0, jhi = n;
+  if (rows.last < rows.first) {
+    jhi = 0;  // no real row
+  } else if (causal) {
+    jhi = min(n, (rows.last - it.lo) / DQ_BN + 1);
+    if (window > 0) jlo = max(0, (rows.first - window + 1 - it.lo) / DQ_BN);
+  }
+  jlo = min(jlo, jhi);
+  auto skip = [&]() {  // a tile the warpgroup's rows cannot see
+    mbar_wait(&sm.full_k[ring.stage], ring.phase);
+    mbar_wait(&sm.full_v[ring.stage], ring.phase);
+    release(&sm.empty_k[ring.stage], lane);
+    release(&sm.empty_v[ring.stage], lane);
+    ring.advance();
+  };
+
+  float acc[Rows::NO];
+#pragma unroll
+  for (int i = 0; i < Rows::NO; ++i) acc[i] = 0.f;
+  for (int j = 0; j < jlo; ++j) skip();
+  if (jlo < jhi) {
+    float s[Rows::NS], dp[Rows::NS];
+    uint32_t dsf[Rows::NS / 8][4];
+    int k0 = it.lo + jlo * DQ_BN;
+    DqRing cur = ring;  // tile j - 1, whose dS K is pending
+    mbar_wait(&sm.full_k[cur.stage], cur.phase);
+    mbar_wait(&sm.full_v[cur.stage], cur.phase);
+    wgmma_fence();
+    rows.start_s_dp(s, dp, cur.stage);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    release(&sm.empty_v[cur.stage], lane);
+    rows.grad(s, dp, k0, tig);
+    pack_frags(dp, dsf);
+    for (int j = jlo + 1; j < jhi; ++j) {
+      DqRing next = cur;
+      next.advance();
+      k0 += DQ_BN;
+      mbar_wait(&sm.full_k[next.stage], next.phase);
+      mbar_wait(&sm.full_v[next.stage], next.phase);
+      wgmma_fence();
+      rows.start_s_dp(s, dp, next.stage);
+      wgmma_commit();
+      rows.start_dq(acc, dsf, cur.stage);
+      wgmma_commit();
+      wgmma_wait<1>();  // S and dP are done; dS K may still run
+      fence_regs(s);
+      fence_regs(dp);
+      release(&sm.empty_v[next.stage], lane);
+      rows.grad(s, dp, k0, tig);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(&sm.empty_k[cur.stage], lane);
+      pack_frags(dp, dsf);
+      cur = next;
+    }
+    wgmma_fence();
+    rows.start_dq(acc, dsf, cur.stage);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(&sm.empty_k[cur.stage], lane);
+    ring = cur;
+    ring.advance();
+  }
+  for (int j = jhi; j < n; ++j) skip();
+  release(&sm.empty_q[qst], lane);  // Q and dO may be refilled
+
+  __nv_bfloat16* op = dq + at * D;
+  if (row0 < t_q) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row0 * D + j * 8 +
+                                         2 * tig) =
+          __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+  }
+  if (row1 < t_q) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row1 * D + j * 8 +
+                                         2 * tig) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * scale,
+                                acc[4 * j + 3] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap do_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      __nv_bfloat16* __restrict__ dq,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int* __restrict__ work, int heads, int kv_heads,
+                      int t_q, int t_k, int causal, float scale, int window) {
+  constexpr int HALVES = D / BOX_COLS;
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
+  const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
+  const int* items = work + gridDim.x + 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.full_q[i], 1);
+      mbar_init(&sm.empty_q[i], BWD_CONSUMERS / 32);  // one per warp
+    }
+#pragma unroll
+    for (int i = 0; i < DQ_STAGES; ++i) {
+      mbar_init(&sm.full_k[i], 1);
+      mbar_init(&sm.full_v[i], 1);
+      mbar_init(&sm.empty_k[i], BWD_CONSUMERS / 32);
+      mbar_init(&sm.empty_v[i], BWD_CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= BWD_CONSUMERS) {
+    // producer warpgroup: one thread starts every load
+    regs_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == BWD_CONSUMERS) {
+      constexpr uint32_t ROWS_BYTES = DQ_BM * D * sizeof(__nv_bfloat16);
+      constexpr uint32_t TILE_BYTES = DQ_BN * D * sizeof(__nv_bfloat16);
+      ItemRing qr;
+      DqRing ring;
+      for (int i = begin; i < end; ++i) {
+        const QItem it = q_item(items, i);
+        const int kvh = (it.bh / heads) * kv_heads +
+                        (it.bh % heads) / (heads / kv_heads);
+        mbar_wait(&sm.empty_q[qr.stage], qr.phase ^ 1);
+        mbar_expect_tx(&sm.full_q[qr.stage], 2 * ROWS_BYTES);
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+          tma_load_3d(sm.q[qr.stage][h], &q_map, &sm.full_q[qr.stage],
+                      h * BOX_COLS, it.q0, it.bh);
+          tma_load_3d(sm.dout[qr.stage][h], &do_map, &sm.full_q[qr.stage],
+                      h * BOX_COLS, it.q0, it.bh);
+        }
+        qr.advance();
+        for (int k0 = it.lo; k0 < it.hi; k0 += DQ_BN) {
+          mbar_wait(&sm.empty_k[ring.stage], ring.phase ^ 1);
+          mbar_expect_tx(&sm.full_k[ring.stage], TILE_BYTES);
+#pragma unroll
+          for (int h = 0; h < HALVES; ++h)
+            tma_load_3d(sm.k[ring.stage][h], &k_map, &sm.full_k[ring.stage],
+                        h * BOX_COLS, k0, kvh);
+          mbar_wait(&sm.empty_v[ring.stage], ring.phase ^ 1);
+          mbar_expect_tx(&sm.full_v[ring.stage], TILE_BYTES);
+#pragma unroll
+          for (int h = 0; h < HALVES; ++h)
+            tma_load_3d(sm.v[ring.stage][h], &v_map, &sm.full_v[ring.stage],
+                        h * BOX_COLS, k0, kvh);
+          ring.advance();
+        }
+      }
+    }
+  } else {
+    regs_alloc<CONSUMER_REGS>();
+    ItemRing qr;
+    DqRing ring;
+    for (int i = begin; i < end; ++i) {
+      mbar_wait(&sm.full_q[qr.stage], qr.phase);
+      dq_consume<D>(sm, qr.stage, dq, lse, delta, q_item(items, i), t_q, t_k,
+                    causal, scale, scale * LOG2E, window, ring);
+      qr.advance();
+    }
+  }
+}
+
+// ---- dk / dv -----------------------------------------------------------
+
+// One work item of the host's list: kv head bkv (b * Hkv + kv head), its
+// DKV_BN-key tile at k0, query head r of its group, and the query rows
+// [lo, hi) that can see the tile (lo a multiple of DKV_BM; empty when
+// hi <= lo). The list: G + 1 offsets, then five ints an item.
+struct KvItem {
+  int bkv, k0, r, lo, hi;
+};
+
+__device__ __forceinline__ KvItem kv_item(const int* __restrict__ items,
+                                          int i) {
+  const int* p = items + 5 * i;
+  return {p[0], p[1], p[2], p[3], p[4]};
+}
+
+// One consumer warpgroup of dkv: 64 keys of the item's tile and the
+// products of one q tile. Its accumulators are transposed against dq's:
+// rows are keys, columns query rows, so lse and delta' are per column.
+template <int D>
+struct DkvKeys {
+  static constexpr int NS = DKV_BM / 2;  // S^T and dP^T accumulators
+  static constexpr int NO = D / 2;       // dK, dV accumulators a thread
+  DkvSmem<D>& sm;
+  int wg, kst, key0, key1, first, t_q, t_k, offset, causal, window;
+  float scale_log2;
+
+  // S^T = K Q^T and dP^T = V dO^T of the q tile in `stage`, started, not
+  // committed; K and V are this warpgroup's 64 rows of the kept tiles
+  __device__ __forceinline__ void start_s_dp(float (&s)[NS], float (&dp)[NS],
+                                             int stage) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = wg * 64 * BOX_COLS + (kk % 4) * 16;
+      WgmmaSS<DKV_BM>::run(
+          s, sw128_desc(sm.k[kst][kk / 4] + at, 16, 1024),
+          sw128_desc(sm.q[stage][kk / 4] + (kk % 4) * 16, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = wg * 64 * BOX_COLS + (kk % 4) * 16;
+      WgmmaSS<DKV_BM>::run(
+          dp, sw128_desc(sm.v[kst][kk / 4] + at, 16, 1024),
+          sw128_desc(sm.dout[stage][kk / 4] + (kk % 4) * 16, 16, 1024),
+          kk > 0);
+    }
+  }
+
+  // acc += A B with B = the q tile `tile` of `stage` read MN-major (query
+  // rows 16 kk .. 16 kk + 15 are 16 rows into each half), started, not
+  // committed
+  __device__ __forceinline__ static void start_rs(
+      float (&acc)[NO], const uint32_t (&a)[NS / 8][4],
+      const __nv_bfloat16* tile) {
+#pragma unroll
+    for (int kk = 0; kk < DKV_BM / 16; ++kk)
+      WgmmaRS<D>::run(acc, a[kk],
+                      sw128_desc(tile + kk * 16 * BOX_COLS, DKV_BM * 128,
+                                 1024));
+  }
+
+  // P^T = 2^(S^T scale log2 e - lse log2 e) in place of S^T, 0 where
+  // masked, for the q tile whose rows start at qr0. Rows past Tq arrive
+  // as zeros (S = 0) with lse = 0: masked here.
+  __device__ __forceinline__ void probs(float (&s)[NS], int qr0, int stage,
+                                        int tig) const {
+    const bool whole =
+        qr0 + DKV_BM <= t_q && first + 64 <= t_k &&
+        (!causal || (first + 63 <= qr0 + offset &&
+                     (window <= 0 || qr0 + DKV_BM - 1 + offset - window <
+                                         first)));
+#pragma unroll
+    for (int j = 0; j < DKV_BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j * 8 + 2 * tig + e, q = qr0 + c;
+        const float l = sm.lse[stage][c] * LOG2E;
+        const bool v0 =
+            whole || (q < t_q && visible(q + offset, key0, t_k, causal, window));
+        const bool v1 =
+            whole || (q < t_q && visible(q + offset, key1, t_k, causal, window));
+        s[4 * j + e] = v0 ? exp2_approx(fmaf(s[4 * j + e], scale_log2, -l)) : 0.f;
+        s[4 * j + 2 + e] =
+            v1 ? exp2_approx(fmaf(s[4 * j + 2 + e], scale_log2, -l)) : 0.f;
+      }
+    }
+  }
+
+  // dS^T = P^T (dP^T - delta') in place of dP^T
+  __device__ __forceinline__ void dscores(const float (&p)[NS],
+                                          float (&dp)[NS], int stage,
+                                          int tig) const {
+#pragma unroll
+    for (int j = 0; j < DKV_BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = sm.delta[stage][j * 8 + 2 * tig + e];
+        dp[4 * j + e] = p[4 * j + e] * (dp[4 * j + e] - d);
+        dp[4 * j + 2 + e] = p[4 * j + 2 + e] * (dp[4 * j + 2 + e] - d);
+      }
+    }
+  }
+};
+
+// x = the float32 partial of earlier items (scratch, the accumulators'
+// layout: float4 i of consumer thread t at i * 256 + t) + x
+template <int N>
+__device__ __forceinline__ void add_partial(float (&x)[N],
+                                            const float* __restrict__ p) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 a = __ldcg(reinterpret_cast<const float4*>(p) +
+                            i * BWD_CONSUMERS + threadIdx.x);
+    x[4 * i] = a.x + x[4 * i];
+    x[4 * i + 1] = a.y + x[4 * i + 1];
+    x[4 * i + 2] = a.z + x[4 * i + 2];
+    x[4 * i + 3] = a.w + x[4 * i + 3];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_partial(const float (&x)[N],
+                                              float* __restrict__ p) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i)
+    __stcg(reinterpret_cast<float4*>(p) + i * BWD_CONSUMERS + threadIdx.x,
+           make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]));
+}
+
+// One dkv work item for the two consumer warpgroups, its sum into the
+// group's, and (last of the group) dk and dv.
+template <int D>
+__device__ __forceinline__ void dkv_consume(
+    DkvSmem<D>& sm, int kst, const KvItem& it, int reps,
+    __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out,
+    float* __restrict__ scratch, int* __restrict__ counters, int t_q,
+    int t_k, int causal, float scale, float scale_log2, int window,
+    DkvRing& ring) {
+  using Keys = DkvKeys<D>;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int offset = causal ? t_k - t_q : 0;
+  const int first = it.k0 + wg * 64;  // the warpgroup's first key
+  const int key0 = first + warp * 16 + g, key1 = key0 + 8;
+  Keys keys{sm,     wg,     kst,    key0,   key1,      first,
+                  t_q,    t_k,    offset, causal, window,    scale_log2};
+  // the item's q tiles s < n; this warpgroup's keys are seen only by
+  // [slo, shi)
+  const int n = it.hi > it.lo ? (it.hi - it.lo + DKV_BM - 1) / DKV_BM : 0;
+  int slo = 0, shi = n;
+  if (first >= t_k) {
+    shi = 0;  // no real key
+  } else if (causal) {
+    slo = max(0, (first - offset - it.lo) / DKV_BM);
+    if (window > 0) {
+      const int end = min(first + 63, t_k - 1) + window - offset - it.lo;
+      shi = end <= 0 ? 0 : min(n, (end + DKV_BM - 1) / DKV_BM);
+    }
+  }
+  slo = min(slo, shi);
+  auto skip = [&]() {  // a q tile no row of which sees these keys
+    mbar_wait(&sm.full_q[ring.stage], ring.phase);
+    release(&sm.empty_q[ring.stage], lane);
+    ring.advance();
+  };
+
+  float dk[Keys::NO], dv[Keys::NO];
+#pragma unroll
+  for (int i = 0; i < Keys::NO; ++i) dk[i] = dv[i] = 0.f;
+  for (int s = 0; s < slo; ++s) skip();
+  for (int s = slo; s < shi; ++s) {
+    const int st = ring.stage;
+    float sp[Keys::NS], dp[Keys::NS];
+    uint32_t pf[Keys::NS / 8][4], dsf[Keys::NS / 8][4];
+    mbar_wait(&sm.full_q[st], ring.phase);
+    wgmma_fence();
+    keys.start_s_dp(sp, dp, st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sp);
+    fence_regs(dp);
+    keys.probs(sp, it.lo + s * DKV_BM, st, tig);
+    pack_frags(sp, pf);
+    wgmma_fence();
+    Keys::start_rs(dv, pf, sm.dout[st][0]);  // dV += P^T dO
+    wgmma_commit();
+    keys.dscores(sp, dp, st, tig);  // while dV runs
+    pack_frags(dp, dsf);
+    wgmma_fence();
+    Keys::start_rs(dk, dsf, sm.q[st][0]);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    release(&sm.empty_q[st], lane);
+    ring.advance();
+  }
+  for (int s = shi; s < n; ++s) skip();
+  release(&sm.empty_kv[kst], lane);  // K and V may be refilled
+
+  if (reps > 1) {
+    // the group's sum, in the order r = 0, 1, ...: wait for item r - 1,
+    // add to its partial, pass the tile on to item r + 1
+    const int tile = it.bkv * ((t_k + DKV_BN - 1) / DKV_BN) + it.k0 / DKV_BN;
+    float* part_k = scratch + (size_t)tile * 2 * BWD_CONSUMERS * Keys::NO;
+    float* part_v = part_k + BWD_CONSUMERS * Keys::NO;
+    int* count = counters + tile;
+    if (it.r > 0) {
+      if (threadIdx.x == 0)
+        while (ld_acquire(count) < it.r) __nanosleep(32);
+      consumers_sync();
+      add_partial(dk, part_k);
+      add_partial(dv, part_v);
+    }
+    if (it.r + 1 < reps) {
+      store_partial(dk, part_k);
+      store_partial(dv, part_v);
+      __threadfence();
+      consumers_sync();
+      if (threadIdx.x == 0) st_release(count, it.r + 1);
+      return;
+    }
+  }
+  const size_t base = (size_t)it.bkv * t_k * D;
+  if (key0 < t_k) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t at = base + (size_t)key0 * D + j * 8 + 2 * tig;
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + at) =
+          __floats2bfloat162_rn(dk[4 * j] * scale, dk[4 * j + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + at) =
+          __floats2bfloat162_rn(dv[4 * j], dv[4 * j + 1]);
+    }
+  }
+  if (key1 < t_k) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t at = base + (size_t)key1 * D + j * 8 + 2 * tig;
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + at) = __floats2bfloat162_rn(
+          dk[4 * j + 2] * scale, dk[4 * j + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + at) =
+          __floats2bfloat162_rn(dv[4 * j + 2], dv[4 * j + 3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap do_map,
+                       const __grid_constant__ CUtensorMap lse_map,
+                       const __grid_constant__ CUtensorMap delta_map,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv,
+                       float* __restrict__ scratch,
+                       int* __restrict__ counters,
+                       const int* __restrict__ work, int heads, int kv_heads,
+                       int t_q, int t_k, int causal, float scale, int window) {
+  constexpr int HALVES = D / BOX_COLS;
+  extern __shared__ unsigned char smem_raw[];
+  DkvSmem<D>& sm = aligned_smem<DkvSmem<D>>(smem_raw);
+  const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
+  const int* items = work + gridDim.x + 1;
+  const int reps = heads / kv_heads;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.full_kv[i], 1);
+      mbar_init(&sm.empty_kv[i], BWD_CONSUMERS / 32);  // one per warp
+    }
+#pragma unroll
+    for (int i = 0; i < DKV_STAGES; ++i) {
+      mbar_init(&sm.full_q[i], 1);
+      mbar_init(&sm.empty_q[i], BWD_CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= BWD_CONSUMERS) {
+    // producer warpgroup: one thread starts every load. lse and delta'
+    // rows are read through 1-D maps over [B*H, Tq rounded up to 4]: a q
+    // tile's box then starts 16-byte aligned
+    regs_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == BWD_CONSUMERS) {
+      constexpr uint32_t KV_BYTES = DKV_BN * D * sizeof(__nv_bfloat16);
+      constexpr uint32_t Q_BYTES =
+          2 * DKV_BM * D * sizeof(__nv_bfloat16) + 2 * DKV_BM * sizeof(float);
+      const int stride = (t_q + 3) / 4 * 4;
+      ItemRing kr;
+      DkvRing ring;
+      for (int i = begin; i < end; ++i) {
+        const KvItem it = kv_item(items, i);
+        const int bh = (it.bkv / kv_heads) * heads +
+                       (it.bkv % kv_heads) * reps + it.r;
+        mbar_wait(&sm.empty_kv[kr.stage], kr.phase ^ 1);
+        mbar_expect_tx(&sm.full_kv[kr.stage], 2 * KV_BYTES);
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+          tma_load_3d(sm.k[kr.stage][h], &k_map, &sm.full_kv[kr.stage],
+                      h * BOX_COLS, it.k0, it.bkv);
+          tma_load_3d(sm.v[kr.stage][h], &v_map, &sm.full_kv[kr.stage],
+                      h * BOX_COLS, it.k0, it.bkv);
+        }
+        kr.advance();
+        for (int qr0 = it.lo; qr0 < it.hi; qr0 += DKV_BM) {
+          uint64_t* full = &sm.full_q[ring.stage];
+          mbar_wait(&sm.empty_q[ring.stage], ring.phase ^ 1);
+          mbar_expect_tx(full, Q_BYTES);
+#pragma unroll
+          for (int h = 0; h < HALVES; ++h) {
+            tma_load_3d(sm.q[ring.stage][h], &q_map, full, h * BOX_COLS, qr0,
+                        bh);
+            tma_load_3d(sm.dout[ring.stage][h], &do_map, full, h * BOX_COLS,
+                        qr0, bh);
+          }
+          tma_load_1d(sm.lse[ring.stage], &lse_map, full, bh * stride + qr0);
+          tma_load_1d(sm.delta[ring.stage], &delta_map, full,
+                      bh * stride + qr0);
+          ring.advance();
+        }
+      }
+    }
+  } else {
+    regs_alloc<CONSUMER_REGS>();
+    ItemRing kr;
+    DkvRing ring;
+    for (int i = begin; i < end; ++i) {
+      mbar_wait(&sm.full_kv[kr.stage], kr.phase);
+      dkv_consume<D>(sm, kr.stage, kv_item(items, i), reps, dk, dv, scratch,
+                     counters, t_q, t_k, causal, scale, scale * LOG2E, window,
+                     ring);
+      kr.advance();
+    }
+  }
+}
 
 // Query rows [lo, hi) of a head that can see any key of the tile at k0:
-// the dkv loop bounds (rows outside them would give P = 0).
+// the float32 dkv loop bounds (rows outside them would give P = 0).
 struct RowRange {
   int lo, hi;
 };
 
 __device__ __forceinline__ RowRange row_range(int k0, int t_q, int t_k,
-                                              int causal, int window,
-                                              int align) {
+                                              int causal, int window) {
   RowRange r{0, t_q};
   if (causal) {
     const int offset = t_k - t_q;
@@ -77,314 +831,8 @@ __device__ __forceinline__ RowRange row_range(int k0, int t_q, int t_k,
     r.lo = max(0, k0 - offset);
     if (window > 0) r.hi = min(t_q, k_last + window - offset);
   }
-  r.lo -= r.lo % align;  // q tiles are aligned to their height
+  r.lo -= r.lo % BQ;  // q tiles are aligned to their height
   return r;
-}
-
-// ---- bf16: tensor cores (mma.sync) ----------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dq, int heads, int kv_heads,
-                      int t_q, int t_k, int causal, float scale, int window) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;  // k-steps over the head dim
-  constexpr int DT = D / 8;   // 8-wide dq column tiles
-  constexpr int NT = BK / 8;  // 8-wide score column tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // q and dO tiles, then two K and two V tiles: tile i+1 loads while i
-  // computes
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + BQ * LD;
-  __nv_bfloat16* ks = dos + BQ * LD;
-  __nv_bfloat16* vs = ks + 2 * BK * LD;
-
-  const int bh = blockIdx.y;
-  // the last q tiles see the most keys under a causal mask: start them
-  // first, so the short ones fill the tail of the grid
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int kvh = (bh / heads) * kv_heads + (bh % heads) / (heads / kv_heads);
-  const __nv_bfloat16* kp = k + (size_t)kvh * t_k * D;
-  const __nv_bfloat16* vp = v + (size_t)kvh * t_k * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;  // mma fragment coordinates
-  const KeyRange range = key_range(q0, t_q, t_k, causal, window);
-
-  load_tile_async<D>(qs, q + (size_t)bh * t_q * D, q0, t_q);
-  load_tile_async<D>(dos, dout + (size_t)bh * t_q * D, q0, t_q);
-  cp_async_commit();
-  load_tile_async<D>(ks, kp, range.lo, t_k);
-  load_tile_async<D>(vs, vp, range.lo, t_k);
-  cp_async_commit();
-
-  // this thread's two rows (g and g + 8): absolute positions, lse, delta'
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const int qpos0 = range.q_first + warp * 16 + g, qpos1 = qpos0 + 8;
-  const float* lp = lse + (size_t)bh * t_q;
-  const float* dp_ = delta + (size_t)bh * t_q;
-  const float lse0 = row0 < t_q ? lp[row0] : 0.f;
-  const float lse1 = row1 < t_q ? lp[row1] : 0.f;
-  const float del0 = row0 < t_q ? dp_[row0] : 0.f;
-  const float del1 = row1 < t_q ? dp_[row1] : 0.f;
-
-  float acc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  for (int k0 = range.lo, buf = 0; k0 < range.hi; k0 += BK, buf ^= 1) {
-    if (k0 + BK < range.hi) {  // prefetch the next tile into the other buffer
-      load_tile_async<D>(ks + (buf ^ 1) * BK * LD, kp, k0 + BK, t_k);
-      load_tile_async<D>(vs + (buf ^ 1) * BK * LD, vp, k0 + BK, t_k);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and the q and dO tiles) have landed
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + buf * BK * LD;
-    const __nv_bfloat16* vt = vs + buf * BK * LD;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows and 64 keys
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-#pragma unroll
-    for (int st = 0; st < KS; ++st) {
-      uint32_t qa[4], da[4];
-      load_a(qa, qs, LD, warp * 16, st);
-      load_a(da, dos, LD, warp * 16, st);
-#pragma unroll
-      for (int t = 0; t < NT; t += 2) {
-        uint32_t b[4];
-        load_b_rows(b, kt, LD, t * 8, st);
-        mma_bf16(s[t], qa, b[0], b[1]);
-        mma_bf16(s[t + 1], qa, b[2], b[3]);
-        load_b_rows(b, vt, LD, t * 8, st);
-        mma_bf16(dp[t], da, b[0], b[1]);
-        mma_bf16(dp[t + 1], da, b[2], b[3]);
-      }
-    }
-
-    // the per-element mask only where some (row, key) pair of the tile
-    // is not visible: the diagonal, the window's edge, the ragged end
-    const bool whole =
-        k0 + BK <= t_k &&
-        (!causal || (k0 + BK - 1 <= range.q_first &&
-                     (window <= 0 || k0 > range.q_first + BQ - 1 - window)));
-    uint32_t dsf[NT / 2][4];  // dS as A fragments of the dS K product
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + t * 8 + 2 * tig + (e & 1);
-        const bool upper = e < 2;  // row g, else row g + 8
-        const bool vis =
-            whole || visible(upper ? qpos0 : qpos1, kpos, t_k, causal, window);
-        const float p =
-            vis ? fast_exp(s[t][e] * scale - (upper ? lse0 : lse1)) : 0.f;
-        ds[e] = p * (dp[t][e] - (upper ? del0 : del1));
-      }
-      dsf[t / 2][(t % 2) * 2] = pack_bf16(ds[0], ds[1]);      // row g
-      dsf[t / 2][(t % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);  // row g + 8
-    }
-
-    // dQ += dS K: keys are the depth, K's rows the B operand's depth
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-#pragma unroll
-      for (int t = 0; t < DT; t += 2) {
-        uint32_t b[4];
-        load_b_cols(b, kt, LD, j, t * 8);
-        mma_bf16(acc[t], dsf[j], b[0], b[1]);
-        mma_bf16(acc[t + 1], dsf[j], b[2], b[3]);
-      }
-    }
-    __syncthreads();  // done reading buf before the next prefetch refills it
-  }
-  cp_async_wait<0>();  // a block with no live tile still has copies in flight
-
-  __nv_bfloat16* out = dq + (size_t)bh * t_q * D;
-  if (row0 < t_q) {
-#pragma unroll
-    for (int t = 0; t < DT; ++t)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row0 * D + t * 8 +
-                                         2 * tig) =
-          __floats2bfloat162_rn(acc[t][0] * scale, acc[t][1] * scale);
-  }
-  if (row1 < t_q) {
-#pragma unroll
-    for (int t = 0; t < DT; ++t)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row1 * D + t * 8 +
-                                         2 * tig) =
-          __floats2bfloat162_rn(acc[t][2] * scale, acc[t][3] * scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv, int heads, int kv_heads,
-                       int t_q, int t_k, int causal, float scale, int window) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;   // k-steps over the head dim
-  constexpr int DT = D / 8;    // 8-wide dk/dv column tiles
-  constexpr int NT = BQ2 / 8;  // 8-wide score column tiles (query rows)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // the block's K and V tiles, then two q, dO, lse and delta' tiles
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + BK * LD;
-  __nv_bfloat16* qs = vs + BK * LD;
-  __nv_bfloat16* dos = qs + 2 * BQ2 * LD;
-  float* ls = reinterpret_cast<float*>(dos + 2 * BQ2 * LD);
-  float* ds_ = ls + 2 * BQ2;
-
-  const int bkv = blockIdx.y;  // b * kv_heads + kv head
-  const int reps = heads / kv_heads;
-  const int first_bh = (bkv / kv_heads) * heads + (bkv % kv_heads) * reps;
-  // under a causal mask the first key tiles are seen by the most rows:
-  // blockIdx.x = 0 starts first
-  const int k0 = blockIdx.x * BK;
-  const int offset = causal ? t_k - t_q : 0;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;  // mma fragment coordinates
-  const RowRange rows = row_range(k0, t_q, t_k, causal, window, BQ2);
-  const int n_tiles = rows.hi > rows.lo ? (rows.hi - rows.lo + BQ2 - 1) / BQ2
-                                        : 0;
-  const int total = reps * n_tiles;  // (query head, q tile) pairs
-
-  // inputs of pair n: its head's rows start at bh * t_q, its tile at qr0
-  auto start_tile = [&](int n, int buf) {
-    const int bh = first_bh + n / n_tiles;
-    const int qr0 = rows.lo + (n % n_tiles) * BQ2;
-    load_tile_async<D, BQ2>(qs + buf * BQ2 * LD, q + (size_t)bh * t_q * D,
-                            qr0, t_q);
-    load_tile_async<D, BQ2>(dos + buf * BQ2 * LD, dout + (size_t)bh * t_q * D,
-                            qr0, t_q);
-    load_rows_f32_async(ls + buf * BQ2, lse + (size_t)bh * t_q, qr0, BQ2, t_q);
-    load_rows_f32_async(ds_ + buf * BQ2, delta + (size_t)bh * t_q, qr0, BQ2,
-                        t_q);
-  };
-
-  load_tile_async<D>(ks, k + (size_t)bkv * t_k * D, k0, t_k);
-  load_tile_async<D>(vs, v + (size_t)bkv * t_k * D, k0, t_k);
-  if (total > 0) start_tile(0, 0);
-  cp_async_commit();
-
-  // absolute positions of this thread's two keys (g and g + 8)
-  const int kpos0 = k0 + warp * 16 + g, kpos1 = kpos0 + 8;
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[t][e] = dv_acc[t][e] = 0.f;
-
-  for (int n = 0, buf = 0; n < total; ++n, buf ^= 1) {
-    if (n + 1 < total) start_tile(n + 1, buf ^ 1);  // prefetch
-    cp_async_commit();
-    cp_async_wait<1>();  // pair n has landed
-    __syncthreads();
-    const __nv_bfloat16* qt = qs + buf * BQ2 * LD;
-    const __nv_bfloat16* dot = dos + buf * BQ2 * LD;
-    const float* lt = ls + buf * BQ2;
-    const float* dt = ds_ + buf * BQ2;
-    const int qr0 = rows.lo + (n % n_tiles) * BQ2;
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys, 32 rows
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-#pragma unroll
-    for (int st = 0; st < KS; ++st) {
-      uint32_t ka[4], va[4];
-      load_a(ka, ks, LD, warp * 16, st);
-      load_a(va, vs, LD, warp * 16, st);
-#pragma unroll
-      for (int t = 0; t < NT; t += 2) {
-        uint32_t b[4];
-        load_b_rows(b, qt, LD, t * 8, st);
-        mma_bf16(s[t], ka, b[0], b[1]);
-        mma_bf16(s[t + 1], ka, b[2], b[3]);
-        load_b_rows(b, dot, LD, t * 8, st);
-        mma_bf16(dp[t], va, b[0], b[1]);
-        mma_bf16(dp[t + 1], va, b[2], b[3]);
-      }
-    }
-
-    uint32_t pf[NT / 2][4], dsf[NT / 2][4];  // P^T, dS^T as A fragments
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = t * 8 + 2 * tig + (e & 1);  // row of the q tile
-        const int qi = qr0 + c;
-        const int kpos = e < 2 ? kpos0 : kpos1;
-        const bool vis =
-            qi < t_q && visible(qi + offset, kpos, t_k, causal, window);
-        p[e] = vis ? fast_exp(s[t][e] * scale - lt[c]) : 0.f;
-        ds[e] = p[e] * (dp[t][e] - dt[c]);
-      }
-      pf[t / 2][(t % 2) * 2] = pack_bf16(p[0], p[1]);        // key g
-      pf[t / 2][(t % 2) * 2 + 1] = pack_bf16(p[2], p[3]);    // key g + 8
-      dsf[t / 2][(t % 2) * 2] = pack_bf16(ds[0], ds[1]);
-      dsf[t / 2][(t % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dV += P^T dO and dK += dS^T Q: query rows are the depth
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-#pragma unroll
-      for (int t = 0; t < DT; t += 2) {
-        uint32_t b[4];
-        load_b_cols(b, dot, LD, j, t * 8);
-        mma_bf16(dv_acc[t], pf[j], b[0], b[1]);
-        mma_bf16(dv_acc[t + 1], pf[j], b[2], b[3]);
-        load_b_cols(b, qt, LD, j, t * 8);
-        mma_bf16(dk_acc[t], dsf[j], b[0], b[1]);
-        mma_bf16(dk_acc[t + 1], dsf[j], b[2], b[3]);
-      }
-    }
-    __syncthreads();  // done reading buf before the next prefetch refills it
-  }
-  cp_async_wait<0>();  // the K/V copies of a block with no live row
-
-  __nv_bfloat16* kout = dk + (size_t)bkv * t_k * D;
-  __nv_bfloat16* vout = dv + (size_t)bkv * t_k * D;
-  if (kpos0 < t_k) {
-#pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      const size_t at = (size_t)kpos0 * D + t * 8 + 2 * tig;
-      *reinterpret_cast<__nv_bfloat162*>(kout + at) = __floats2bfloat162_rn(
-          dk_acc[t][0] * scale, dk_acc[t][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vout + at) =
-          __floats2bfloat162_rn(dv_acc[t][0], dv_acc[t][1]);
-    }
-  }
-  if (kpos1 < t_k) {
-#pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      const size_t at = (size_t)kpos1 * D + t * 8 + 2 * tig;
-      *reinterpret_cast<__nv_bfloat162*>(kout + at) = __floats2bfloat162_rn(
-          dk_acc[t][2] * scale, dk_acc[t][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vout + at) =
-          __floats2bfloat162_rn(dv_acc[t][2], dv_acc[t][3]);
-    }
-  }
 }
 
 // ---- float32: CUDA-core FMAs -----------------------------------------
@@ -550,7 +998,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
   const int k0 = blockIdx.x * BK;
   const int offset = causal ? t_k - t_q : 0;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const RowRange rows = row_range(k0, t_q, t_k, causal, window, BQ);
+  const RowRange rows = row_range(k0, t_q, t_k, causal, window);
 
   load_tile_t<D>(ks, LDK, k + (size_t)bkv * t_k * D, k0, t_k);
   load_tile_t<D>(vs, LDK, v + (size_t)bkv * t_k * D, k0, t_k);
@@ -657,20 +1105,28 @@ __global__ void __launch_bounds__(FMA_THREADS)
 template <int D>
 int launch_dq(int is_bf16, const void* q, const void* k, const void* v,
               const void* dout, const float* lse, const float* delta, void* dq,
-              int batch, int heads, int kv_heads, int t_q, int t_k, int causal,
-              float scale, int window, cudaStream_t stream) {
-  const dim3 grid((t_q + BQ - 1) / BQ, batch * heads);
+              const int* work, int blocks, int batch, int heads, int kv_heads,
+              int t_q, int t_k, int causal, float scale, int window,
+              cudaStream_t stream) {
   cudaError_t err;
   if (is_bf16) {
     using T = __nv_bfloat16;
-    const size_t smem = (size_t)(2 * BQ + 4 * BK) * (D + 8) * sizeof(T);
+    if (work == nullptr || blocks <= 0) return (int)cudaErrorInvalidValue;
+    CUtensorMap q_map, do_map, k_map, v_map;
+    if ((err = tensor_map(&q_map, q, D, t_q, batch * heads, DQ_BM)) ||
+        (err = tensor_map(&do_map, dout, D, t_q, batch * heads, DQ_BM)) ||
+        (err = tensor_map(&k_map, k, D, t_k, batch * kv_heads, DQ_BN)) ||
+        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads, DQ_BN)))
+      return (int)err;
+    const size_t smem = smem_bytes<DqSmem<D>>();
     err = allow_smem(flash_bwd_dq_bf16<D>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_bf16<D><<<grid, MMA_THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), heads, kv_heads, t_q, t_k, causal, scale, window);
+    // persistent: the work list is dealt to `blocks` blocks, one an SM
+    flash_bwd_dq_bf16<D><<<blocks, BWD_THREADS, smem, stream>>>(
+        q_map, do_map, k_map, v_map, static_cast<T*>(dq), lse, delta, work,
+        heads, kv_heads, t_q, t_k, causal, scale, window);
   } else {
+    const dim3 grid((t_q + BQ - 1) / BQ, batch * heads);
     const size_t smem = dq_f32_smem_floats<D>() * sizeof(float);
     err = allow_smem(flash_bwd_dq_f32<D>, smem);
     if (err != cudaSuccess) return (int)err;
@@ -686,23 +1142,37 @@ int launch_dq(int is_bf16, const void* q, const void* k, const void* v,
 template <int D>
 int launch_dkv(int is_bf16, const void* q, const void* k, const void* v,
                const void* dout, const float* lse, const float* delta,
-               void* dk, void* dv, int batch, int heads, int kv_heads,
+               void* dk, void* dv, const int* work, float* scratch,
+               int* counters, int blocks, int batch, int heads, int kv_heads,
                int t_q, int t_k, int causal, float scale, int window,
                cudaStream_t stream) {
-  const dim3 grid((t_k + BK - 1) / BK, batch * kv_heads);
   cudaError_t err;
   if (is_bf16) {
     using T = __nv_bfloat16;
-    const size_t smem = (size_t)(2 * BK + 4 * BQ2) * (D + 8) * sizeof(T) +
-                        4 * BQ2 * sizeof(float);
+    if (work == nullptr || blocks <= 0 ||
+        (heads > kv_heads && (scratch == nullptr || counters == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    // lse and delta' as [B*H, Tq rounded up to 4] (padded by the caller)
+    const size_t rows = (size_t)batch * heads * ((t_q + 3) / 4 * 4);
+    CUtensorMap k_map, v_map, q_map, do_map, lse_map, delta_map;
+    if ((err = tensor_map(&k_map, k, D, t_k, batch * kv_heads, DKV_BN)) ||
+        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads, DKV_BN)) ||
+        (err = tensor_map(&q_map, q, D, t_q, batch * heads, DKV_BM)) ||
+        (err = tensor_map(&do_map, dout, D, t_q, batch * heads, DKV_BM)) ||
+        (err = tensor_map_f32(&lse_map, lse, rows, DKV_BM)) ||
+        (err = tensor_map_f32(&delta_map, delta, rows, DKV_BM)))
+      return (int)err;
+    const size_t smem = smem_bytes<DkvSmem<D>>();
     err = allow_smem(flash_bwd_dkv_bf16<D>, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_bf16<D><<<grid, MMA_THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), heads, kv_heads, t_q, t_k,
-        causal, scale, window);
+    // persistent, at most one block an SM: the group's ordered sum needs
+    // every block resident (see the note at the top)
+    flash_bwd_dkv_bf16<D><<<blocks, BWD_THREADS, smem, stream>>>(
+        k_map, v_map, q_map, do_map, lse_map, delta_map, static_cast<T*>(dk),
+        static_cast<T*>(dv), scratch, counters, work, heads, kv_heads, t_q,
+        t_k, causal, scale, window);
   } else {
+    const dim3 grid((t_k + BK - 1) / BK, batch * kv_heads);
     const size_t smem = dkv_f32_smem_floats<D>() * sizeof(float);
     err = allow_smem(flash_bwd_dkv_f32<D>, smem);
     if (err != cudaSuccess) return (int)err;
@@ -715,50 +1185,70 @@ int launch_dkv(int is_bf16, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int batch, int heads, int kv_heads, int t_q, int t_k,
-               int rows) {
-  return batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads ||
-         t_q <= 0 || t_k <= 0 || rows > 65535;
+cudaError_t bad_shape(int batch, int heads, int kv_heads, int t_q, int t_k,
+                      int rows) {
+  if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads ||
+      t_q <= 0 || t_k <= 0 || rows > 65535)
+    return cudaErrorInvalidValue;
+  return check_device();
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns 0 or the CUDA
 // error of the launch; the caller checks shapes, dtypes, contiguity and
-// alignment, and computes delta' = rowsum(dO * O) - g_lse.
+// alignment, and computes delta' = rowsum(dO * O) - g_lse. bf16 also
+// takes the work list (on the card) dealt to `blocks` blocks; bf16 dkv
+// takes lse and delta' with their rows padded to a multiple of 4 floats
+// ([B*H, Tq rounded up to 4]) and, with more than one query head per kv
+// head, a float32 scratch of B * Hkv * ceil(Tk / 128) * 128 * D * 2
+// values and B * Hkv * ceil(Tk / 128) int32 counters, zeroed. float32
+// ignores all of these.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
-                            const float* delta, void* dq, int batch,
-                            int heads, int kv_heads, int t_q, int t_k,
-                            int head_dim, int is_bf16, int causal,
-                            float scale, int window, void* stream) {
-  if (bad_shape(batch, heads, kv_heads, t_q, t_k, batch * heads))
-    return (int)cudaErrorInvalidValue;
+                            const float* delta, void* dq, const void* work,
+                            int batch, int heads, int kv_heads, int t_q,
+                            int t_k, int head_dim, int is_bf16, int causal,
+                            float scale, int window, int blocks,
+                            void* stream) {
+  const cudaError_t bad =
+      bad_shape(batch, heads, kv_heads, t_q, t_k, batch * heads);
+  if (bad != cudaSuccess) return (int)bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* w = static_cast<const int*>(work);
   if (head_dim == 128)
-    return launch_dq<128>(is_bf16, q, k, v, dout, lse, delta, dq, batch,
-                          heads, kv_heads, t_q, t_k, causal, scale, window, s);
+    return launch_dq<128>(is_bf16, q, k, v, dout, lse, delta, dq, w, blocks,
+                          batch, heads, kv_heads, t_q, t_k, causal, scale,
+                          window, s);
   if (head_dim == 64)
-    return launch_dq<64>(is_bf16, q, k, v, dout, lse, delta, dq, batch, heads,
-                         kv_heads, t_q, t_k, causal, scale, window, s);
+    return launch_dq<64>(is_bf16, q, k, v, dout, lse, delta, dq, w, blocks,
+                         batch, heads, kv_heads, t_q, t_k, causal, scale,
+                         window, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv,
+                             const void* work, void* scratch, void* counters,
                              int batch, int heads, int kv_heads, int t_q,
                              int t_k, int head_dim, int is_bf16, int causal,
-                             float scale, int window, void* stream) {
-  if (bad_shape(batch, heads, kv_heads, t_q, t_k, batch * kv_heads))
-    return (int)cudaErrorInvalidValue;
+                             float scale, int window, int blocks,
+                             void* stream) {
+  const cudaError_t bad =
+      bad_shape(batch, heads, kv_heads, t_q, t_k, batch * kv_heads);
+  if (bad != cudaSuccess) return (int)bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* w = static_cast<const int*>(work);
+  float* sc = static_cast<float*>(scratch);
+  int* ct = static_cast<int*>(counters);
   if (head_dim == 128)
-    return launch_dkv<128>(is_bf16, q, k, v, dout, lse, delta, dk, dv, batch,
-                           heads, kv_heads, t_q, t_k, causal, scale, window,
-                           s);
+    return launch_dkv<128>(is_bf16, q, k, v, dout, lse, delta, dk, dv, w, sc,
+                           ct, blocks, batch, heads, kv_heads, t_q, t_k,
+                           causal, scale, window, s);
   if (head_dim == 64)
-    return launch_dkv<64>(is_bf16, q, k, v, dout, lse, delta, dk, dv, batch,
-                          heads, kv_heads, t_q, t_k, causal, scale, window, s);
+    return launch_dkv<64>(is_bf16, q, k, v, dout, lse, delta, dk, dv, w, sc,
+                          ct, blocks, batch, heads, kv_heads, t_q, t_k,
+                          causal, scale, window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -84,7 +84,6 @@ namespace {
 constexpr int FWD_BM = 128;         // query rows per block
 constexpr int FWD_THREADS = 384;    // consumer warpgroups 0, 1; producer 2
 constexpr int FWD_CONSUMERS = 256;  // threads of the consumer warpgroups
-constexpr int BOX_COLS = 64;        // bf16 columns of one swizzled TMA box
 constexpr int FWD_BN = 128;         // keys per K/V tile
 constexpr int FWD_STAGES = 2;       // depth of the K/V ring
 
@@ -101,17 +100,6 @@ struct FwdSmem {
   uint64_t full_q, empty_q, full_k[FWD_STAGES], full_v[FWD_STAGES];
   uint64_t empty_k[FWD_STAGES], empty_v[FWD_STAGES];
 };
-
-template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(FwdSmem<D>) + 1024;  // room to align the base to 1024
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Ping-pong of the two consumer warpgroups (named barriers 1 and 2, each of
 // both warpgroups' 256 threads): a warpgroup waits for its turn before it
@@ -250,19 +238,7 @@ struct FwdRows {
   }
 };
 
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  if (lane == 0) mbar_arrive(bar);  // one arrival per consumer warp
-}
-
-// A position in the ring of K/V stages: the stage and the parity of its
-// current use. Producer and consumers walk it in the same order, across
-// all of a block's work items.
-struct Ring {
-  int stage = 0, phase = 0;
-  __device__ __forceinline__ void advance() {
-    if (++stage == FWD_STAGES) stage = 0, phase ^= 1;
-  }
-};
+using FwdRing = Ring<FWD_STAGES>;  // the K/V ring
 
 // One work item of the host's list: query head bh, its FWD_BM-row q tile
 // at q0, and the keys [lo, hi) its rows can see (lo a multiple of FWD_BN).
@@ -285,7 +261,7 @@ template <int D>
 __device__ __forceinline__ void fwd_consume(
     FwdSmem<D>& sm, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
     const FwdItem& it, int t_q, int t_k, int causal, float scale_log2,
-    int window, Ring& ring, bool final_item) {
+    int window, FwdRing& ring, bool final_item) {
   using Rows = FwdRows<D>;
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
   const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
@@ -310,7 +286,7 @@ __device__ __forceinline__ void fwd_consume(
   uint32_t pf[Rows::NS / 8][4];
   const int n_tiles = (it.hi - it.lo + FWD_BN - 1) / FWD_BN;
   int k0 = it.lo;
-  Ring cur = ring;  // tile j - 1, whose V is pending
+  FwdRing cur = ring;  // tile j - 1, whose V is pending
   mbar_wait(&sm.full_k[cur.stage], cur.phase);
   turn_wait(wg);
   wgmma_fence();
@@ -323,7 +299,7 @@ __device__ __forceinline__ void fwd_consume(
   rows.softmax(s, k0, tig);
   Rows::pack(s, pf);
   for (int j = 1; j < n_tiles; ++j) {
-    Ring next = cur;
+    FwdRing next = cur;
     next.advance();
     k0 += FWD_BN;
     rows.rescale(o);
@@ -400,8 +376,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                    int window) {
   constexpr int HALVES = D / BOX_COLS;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t pad = (1024 - smem_u32(smem_raw) % 1024) % 1024;
-  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw + pad);
+  FwdSmem<D>& sm = aligned_smem<FwdSmem<D>>(smem_raw);
   const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
   const int* items = work + gridDim.x + 1;
 
@@ -424,7 +399,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     regs_dealloc<40>();
     if (threadIdx.x == FWD_CONSUMERS) {
       constexpr uint32_t KV_BYTES = FWD_BN * D * sizeof(__nv_bfloat16);
-      Ring ring;
+      FwdRing ring;
       for (int i = begin; i < end; ++i) {
         const FwdItem it = fwd_item(items, i);
         const int kvh = (it.bh / heads) * kv_heads +
@@ -459,7 +434,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     regs_alloc<232>();
     const int wg = threadIdx.x / 128;
     if (wg == 1) turn_pass(wg);  // warpgroup 0 starts first
-    Ring ring;
+    FwdRing ring;
     for (int i = begin; i < end; ++i) {
       mbar_wait(&sm.full_q, (i - begin) & 1);
       fwd_consume<D>(sm, out, lse, fwd_item(items, i), t_q, t_k, causal,
@@ -611,48 +586,6 @@ __global__ void __launch_bounds__(FMA_THREADS)
 
 // ---- host side -------------------------------------------------------
 
-// cuTensorMapEncodeTiled is a driver-API call; it is reached through the
-// runtime's cudaGetDriverEntryPoint, so the library needs no -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// The 3-D map (D, rows, matrices) of a contiguous [matrices, rows, D] bf16
-// tensor, read in boxes of 64 columns x box_rows rows of one matrix with
-// the 128-byte swizzle; rows past `rows` read as zeros.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int d, int rows,
-                       int matrices, int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)matrices};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {BOX_COLS, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 int launch(int is_bf16, const void* q, const void* k, const void* v,
            void* out, void* lse, const int* work, int blocks, int batch,
@@ -667,7 +600,7 @@ int launch(int is_bf16, const void* q, const void* k, const void* v,
         (err = tensor_map(&k_map, k, D, t_k, batch * kv_heads, FWD_BN)) ||
         (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads, FWD_BN)))
       return (int)err;
-    const size_t smem = fwd_smem_bytes<D>();
+    const size_t smem = smem_bytes<FwdSmem<D>>();
     err = allow_smem(flash_fwd_bf16<D>, smem);
     if (err != cudaSuccess) return (int)err;
     // persistent: the work list is dealt to `blocks` blocks, one an SM
@@ -687,21 +620,6 @@ int launch(int is_bf16, const void* q, const void* k, const void* v,
         window);
   }
   return (int)cudaGetLastError();
-}
-
-// The kernels are built for sm_90a alone: on any other card, fail loudly.
-cudaError_t check_device() {
-  int dev = 0, major = 0, minor = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&major, cudaDevAttrComputeCapabilityMajor,
-                                 dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&minor, cudaDevAttrComputeCapabilityMinor,
-                                 dev);
-  if (err != cudaSuccess) return err;
-  return major == 9 && minor == 0 ? cudaSuccess
-                                  : cudaErrorNoKernelImageForDevice;
 }
 
 }  // namespace

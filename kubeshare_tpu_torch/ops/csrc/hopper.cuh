@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward: mbarriers,
-// TMA tile loads through a tensor map, wgmma descriptors and the wgmma
-// products it starts. Raw PTX, so the kernels build in seconds with no
-// header beyond the CUDA toolkit's.
+// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu): mbarriers and the ring of stages they
+// guard, TMA tile loads through a tensor map (and the host code that
+// encodes the map), wgmma descriptors and the wgmma products the kernels
+// start. Raw PTX, so the kernels build in seconds with no header beyond
+// the CUDA toolkit's.
 //
 // Shared-memory tiles are D/64 column halves of [rows][64] bf16, each
 // written by one TMA box with the 128-byte swizzle (a box's inner extent
@@ -18,6 +20,8 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr int BOX_COLS = 64;  // bf16 columns of one swizzled TMA box
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -61,6 +65,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  if (lane == 0) mbar_arrive(bar);  // one arrival per consumer warp
+}
+
+// A position in a ring of STAGES stages: the stage and the parity of its
+// current use. Producer and consumers walk it in the same order, across
+// all of a block's work items.
+template <int STAGES>
+struct Ring {
+  int stage = 0, phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == STAGES) stage = 0, phase ^= 1;
+  }
+};
+
 // ---- TMA ------------------------------------------------------------------
 
 // Copy the box at (c0 = column, c1 = row, c2 = matrix) of a 3-D tensor map
@@ -75,6 +94,33 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Copy the box at element c0 of a 1-D tensor map; elements past its end
+// arrive as zeros. Keep the box's start 16-byte aligned: a box of
+// float32 values starting at element 33 faulted on the card.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// ---- shared memory -------------------------------------------------------
+
+// Bytes of dynamic shared memory for a kernel's layout Smem, with room to
+// align its base to 1024 (the swizzle's period), and the aligned layout.
+template <typename Smem>
+constexpr size_t smem_bytes() {
+  return sizeof(Smem) + 1024;
+}
+
+template <typename Smem>
+__device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
+  const uint32_t pad = (1024 - smem_u32(raw) % 1024) % 1024;
+  return *reinterpret_cast<Smem*>(raw + pad);
 }
 
 // ---- warp specialisation -------------------------------------------------
@@ -153,6 +199,19 @@ template <int N>
 struct WgmmaSS;
 
 template <>
+struct WgmmaSS<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HK_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : HK_F16(d, 0), HK_F16(d, 16)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
 struct WgmmaSS<128> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
                                              uint64_t b, int accumulate) {
@@ -202,5 +261,82 @@ struct WgmmaRS<128> {
 #undef HK_F16
 #undef HK_R32
 #undef HK_R64
+
+// ---- host side: tensor maps and the card -------------------------------
+
+// cuTensorMapEncodeTiled is a driver-API call; it is reached through the
+// runtime's cudaGetDriverEntryPoint, so the libraries need no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The 3-D map (D, rows, matrices) of a contiguous [matrices, rows, D] bf16
+// tensor, read in boxes of 64 columns x box_rows rows of one matrix with
+// the 128-byte swizzle; rows past `rows` read as zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int d, int rows,
+                       int matrices, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)matrices};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {BOX_COLS, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 1-D map of n contiguous float32 values, read in boxes of `box`
+// (no swizzle); values past n read as zeros.
+cudaError_t tensor_map_f32(CUtensorMap* map, const float* base, size_t n,
+                           int box) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // rank 1: not read
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims,
+      strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The kernels are built for sm_90a alone: on any other card, fail loudly.
+cudaError_t check_device() {
+  int dev = 0, major = 0, minor = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&major, cudaDevAttrComputeCapabilityMajor,
+                                 dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&minor, cudaDevAttrComputeCapabilityMinor,
+                                 dev);
+  if (err != cudaSuccess) return err;
+  return major == 9 && minor == 0 ? cudaSuccess
+                                  : cudaErrorNoKernelImageForDevice;
+}
 
 }  // namespace

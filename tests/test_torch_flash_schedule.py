@@ -1,7 +1,7 @@
 """The bf16 flash forward kernel's work schedule, on the CPU.
 
 ``flash_forward_schedule`` is the work list the host hands
-``csrc/flash_fwd.cu`` (encoded by ``flash_forward_work``), and the kernel
+``csrc/flash_fwd.cu`` (encoded by ``flash_work``), and the kernel
 walks nothing else: (head, 128-row q tile) items, longest first, dealt in
 a snake over a persistent grid of one block per SM, each loading the
 128-key tiles its rows can see. These tests hold it to that: every item
@@ -95,7 +95,7 @@ def test_work_list_gives_each_block_its_items(bh, t_q, t_k, causal, window,
     """The flat list: G + 1 offsets, then four ints an item, block after
     block, as the kernel's ``fwd_item`` reads them."""
     blocks = tattn.flash_forward_schedule(bh, t_q, t_k, causal, window, sms)
-    flat = tattn.flash_forward_work(blocks)
+    flat = tattn.flash_work(blocks)
     grid = len(blocks)
     offsets, items = flat[:grid + 1], flat[grid + 1:]
     assert offsets[0] == 0 and 4 * offsets[-1] == len(items)

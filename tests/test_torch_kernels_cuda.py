@@ -58,10 +58,25 @@ CASES = [
     ((1, 2, 2, 200, 200, 128), True, 37, False),     # ragged window
 ]
 
+# what the bf16 backward's design adds: more dk/dv items than SMs (2 * 8
+# kv heads * 4 key tiles * 4 query heads = 256), a group of 8 query heads
+# summed in order and a group of one written directly, a window narrower
+# than a 64-row q tile, ragged T across a 128-key tile, D = 64 with
+# causal Tq < Tk
+BWD_CASES = CASES + [
+    ((2, 32, 8, 512, 512, 128), True, 0, False),
+    ((1, 8, 1, 256, 256, 128), True, 0, True),
+    ((1, 8, 1, 300, 300, 64), False, 0, False),
+    ((1, 4, 4, 256, 256, 128), True, 0, True),
+    ((1, 4, 2, 256, 256, 128), True, 17, True),
+    ((1, 8, 2, 200, 200, 128), True, 0, False),
+    ((1, 4, 2, 100, 300, 64), True, 0, True),
+]
+
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("shape,causal,window,use_glse", CASES)
+@pytest.mark.parametrize("shape,causal,window,use_glse", BWD_CASES)
 def test_backward_kernels_match_plain_version(cuda, dtype, shape, causal,
                                               window, use_glse):
     b, h, hkv, tq, tk, d = shape
@@ -134,11 +149,44 @@ def test_forward_walks_the_host_work_list_from_any_stream(cuda):
     schedule = tattn.flash_forward_schedule(4, 300, 300, True, 0, sms)
     assert blocks == len(schedule)
     assert work.dtype == torch.int32 and work.device == q.device
-    assert work.tolist() == tattn.flash_forward_work(schedule)
+    assert work.tolist() == tattn.flash_work(schedule)
     assert tattn._forward_work_on(q.device, 4, 300, 300, True, 0)[0] is work
     ref_out, ref_lse = tattn.flash_attention_reference(q, k, v, True)
     assert _rel(out, ref_out) <= REL_TOL[torch.bfloat16]
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def test_backward_from_a_side_stream(cuda):
+    """The bf16 backward kernels read their host-built work lists, and dk/dv
+    its counters and scratch, on whatever stream launches them; the lists
+    on the card are the host schedules, made once per shape."""
+    q, k, v, do, _ = _inputs(cuda, torch.bfloat16, 1, 8, 2, 300, 300, 128,
+                             9)
+    out, lse = tattn.flash_forward(q, k, v, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = dict(tattn.LAUNCHES)
+    with torch.cuda.stream(side):
+        got = tattn.flash_backward(q, k, v, out, lse, do)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert tattn.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = tattn.flash_backward_reference(q, k, v, out, lse, do)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= REL_TOL[torch.bfloat16]
+    again = tattn.flash_backward(q, k, v, out, lse, do)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    work, blocks = tattn._backward_work_on(q.device, 2, 4, 300, 300, True, 0)
+    schedule = tattn.flash_backward_schedule(2, 4, 300, 300, True, 0, sms)
+    assert blocks == len(schedule)
+    assert work.tolist() == tattn.flash_work(schedule)
+    work, blocks = tattn._forward_work_on(q.device, 8, 300, 300, True, 0,
+                                          tattn.FLASH_DQ_BLOCK_K)
+    schedule = tattn.flash_forward_schedule(8, 300, 300, True, 0, sms,
+                                            tattn.FLASH_DQ_BLOCK_K)
+    assert work.tolist() == tattn.flash_work(schedule)
 
 
 def test_autograd_launches_the_backward_kernels(cuda):
