@@ -30,18 +30,40 @@ nonzero and prints no result:
    against the dense ones, five steps on one batch whose loss must
    fall.
 8. a trainer and a server share the card under ``ChipExecutor``.
+9. workloads: ``cmd/workload.main`` trains mnist, cifar, resnet, vgg and
+   lstm at the CLI's defaults (batch 256); the loss must be finite and
+   fall (the lstm's uniform random tokens put it at its floor, ln 8192,
+   from the first step: there it must stay). ResNet's logits on the
+   card against the same weights on the CPU; a checkpointed run stopped
+   and resumed against an uninterrupted one; a run under
+   ``install_gate`` and a live ``tpu-schd`` must acquire tokens.
+   ``--model llama`` is not run: its head dim is 32 and the flash
+   kernels take 64 or 128.
+10. drain: two threads on two streams; one queues ~50 ms of sleep, the
+    other's gate drain must return in well under that.
+11. headline: ``bench/headline.py`` at its published sizes (8 MNIST
+    pods, batch 1024, 3 rounds of 6 s phases) under a live
+    ``tpu-schd``; every pod must acquire tokens.
 
-Then the ``{"kernels": [...]}`` line, and as the last line
-``{"ok": true, "device": {...}}``. Needs one CUDA device.
+Then each phase's seconds, the ``{"kernels": [...]}`` line, and as the
+last line ``{"ok": true, "device": {...}}``. Needs one CUDA device, and
+g++ for ``tpu-schd`` (``bench/arbiter.py`` builds it when missing).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
+import io
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -103,6 +125,22 @@ CHUNKED_GRAD_REL_TOL = 2e-2
 # product, the plain path before casting P), a bf16 ulp per element
 # (2^-8 relative) that 32 layers carry into the logits.
 LOGIT_REL_TOL = 5e-2
+# ResNet-18's logits on the card against the same weights on the CPU, max
+# abs difference over the max abs: bf16 products in another order on
+# each side, the tolerance tests/test_torch_vision.py holds the port to
+# against the reference.
+RESNET_REL_TOL = 5e-2
+# A checkpointed, stopped and resumed MNIST run against an uninterrupted
+# one, the final bf16 loss: the same batches and steps, but cuDNN's
+# backward may sum in another order between runs; a bf16 loss of ~2.3
+# has an ulp of 2^-6 = 0.0156 (0.7 %), so 2e-2 is about three ulps.
+RESUME_REL_TOL = 2e-2
+# Steps of each workload in phase 9, at the CLI's defaults otherwise.
+WORKLOAD_STEPS = 30
+# ~50 ms of sleep on the card at the H100's 1.98 GHz boost (phase 10),
+# and the most the other stream's drain may take.
+DRAIN_SLEEP_CYCLES = 100_000_000
+DRAIN_MAX_MS = 10.0
 
 
 def visible_pairs(t_q: int, t_k: int, causal: bool, window: int) -> int:
@@ -181,8 +219,13 @@ def main() -> int:
     device = resolve_device(None)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
+    phase_started = {}
+
+    def mark(name: str) -> None:
+        phase_started[name] = time.perf_counter()
 
     # ---- 1. device -----------------------------------------------------
+    mark("1_device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -285,6 +328,7 @@ def main() -> int:
         return torch.randn(*shape, generator=gen, device=device).to(dtype)
 
     # ---- 2. kernel against its plain version ---------------------------
+    mark("2_kernel")
     # (B, H, Hkv, Tq, Tk, D), dtype, causal, window. The first is the
     # shape llama3_8b gives the kernel at T=2048; the last two are
     # ragged (no tile divides T), as llama_loss's T = seq_len - 1 is.
@@ -356,6 +400,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. forward at Llama-3-8B width ---------------------------------
+    mark("3_forward")
     cfg = llama3_8b()
     t0 = time.perf_counter()
     model = init_llama(cfg, generator=gen, device=device)
@@ -402,6 +447,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. serving at full width ---------------------------------------
+    mark("4_serving")
     buckets = (32, 128, 512)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
                for n in rng.integers(17, 513, 12)]
@@ -483,6 +529,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. two tenants under ChipExecutor ------------------------------
+    mark("5_sharing")
     # (grad mode is per thread: the executor's thread runs with it on,
     # harmless since no tensor here requires grad)
     tenants = {"pod-a": 3.0, "pod-b": 1.0}
@@ -515,6 +562,7 @@ def main() -> int:
                 / want.float().abs().max().clamp_min(1e-30)).item()
 
     # ---- 6. backward kernels against their plain version ----------------
+    mark("6_backward_kernels")
     # phase 2's cases; an lse cotangent on three of them, as a ring merge
     # would send it
     glse_cases = {2, 4, 9}
@@ -640,6 +688,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. training at Llama-3-8B width --------------------------------
+    mark("7_training")
     # Full width, depth cut to 4 layers: the 32-layer model with float32
     # master weights, gradients and two Adam moments needs 16 bytes per
     # parameter, 128 GB; four layers are 1.92 B parameters, ~31 GB.
@@ -749,6 +798,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. a trainer and a server share the card ------------------------
+    mark("8_train_and_serve")
     # KubeShare's own case: the 4-layer trainer above (~31 GB with Adam)
     # beside a 4-slot server on phase 3's 32-layer model (16 GB of weights,
     # 4.3 GB of cache), each a tenant of one ChipExecutor
@@ -776,6 +826,226 @@ def main() -> int:
     emit({"phase": "train_and_serve", "weights": tenants, "stats": stats,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     check(all(stats[n]["calls"] == 3 for n in tenants), "every call ran")
+    del (server, executor, futures, results, model, trainer, params, opt,
+         train_step, grads_of, head_grad, batch_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The workload slice: none of phases 9-11 runs attention, so the
+    # flash kernels' counts, zeroed here and read after phase 11, stay 0.
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+    # ---- 9. the workloads through the CLI ------------------------------
+    mark("9_workloads")
+    from kubeshare_tpu_torch.bench.arbiter import (
+        free_port, start_arbiter, stop_arbiter,
+    )
+    from kubeshare_tpu_torch.bench.headline import run_headline
+    from kubeshare_tpu_torch.cmd import workload as workload_cmd
+    from kubeshare_tpu_torch.models.convert import (
+        resnet_from_jax, workload_to_jax,
+    )
+    from kubeshare_tpu_torch.models.resnet import ResNetConfig, init_resnet
+    from kubeshare_tpu_torch.nodeconfig.files import ConfigEntry
+    from kubeshare_tpu_torch.runtime import hook
+    from kubeshare_tpu_torch.runtime.hook import SharedChipGate
+
+    def workload(*argv: str) -> dict:
+        """``cmd/workload.main`` on the card; its JSON line."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = workload_cmd.main(list(argv))
+        check(rc == 0, f"workload {argv} exited {rc}")
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    lstm_floor = math.log(8192)
+    bf16_ulp_at_floor = 2.0 ** -4           # bf16 spacing in [8, 16)
+    for name in ("mnist", "cifar", "resnet", "vgg", "lstm"):
+        first = workload("--model", name, "--steps", "1")
+        doc = workload("--model", name, "--steps", str(WORKLOAD_STEPS))
+        emit({"phase": "workload", **doc, "first_step_loss":
+              first["final_loss"]})
+        check(math.isfinite(doc["final_loss"]) and doc["steps"]
+              == WORKLOAD_STEPS, f"{name}: {doc}")
+        if name == "lstm":
+            check(abs(doc["final_loss"] - lstm_floor) <= bf16_ulp_at_floor
+                  and doc["final_loss"] <= first["final_loss"]
+                  + bf16_ulp_at_floor, f"lstm loss left its floor: {doc}")
+        else:
+            check(doc["final_loss"] < first["final_loss"],
+                  f"{name}: loss did not fall: {first} -> {doc}")
+    emit({"phase": "workload", "model": "llama",
+          "skipped": "its head dim is 32; the flash kernels take 64 or 128 "
+                     "(ROADMAP Queue 3)"})
+
+    # where a workload's step spends its time: one Adam step of each at
+    # the CLI's defaults, wall time (median of 3) against its kernels
+    for name in ("mnist", "cifar", "resnet", "vgg", "lstm"):
+        net, loss_fn, batch_at = workload_cmd._build(name, 256, device,
+                                                     args.seed)
+        _, wl_step = make_train_step(loss_fn, net)
+        wl_batch = batch_at(0)
+        for _ in range(3):
+            wl_step(*wl_batch)
+        wl_times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wl_step(*wl_batch)
+            torch.cuda.synchronize()
+            wl_times.append(time.perf_counter() - t0)
+        wl_ms = 1e3 * statistics.median(wl_times)
+        emit({"phase": "workload_step", "model": name, "batch": 256,
+              "step_ms": wl_ms,
+              "device": device_breakdown(lambda: wl_step(*wl_batch), wl_ms)})
+        del net, wl_step, wl_batch
+
+    # ResNet-18 (the CLI's config) on the card against the same weights
+    # on the CPU
+    rcfg = ResNetConfig()
+    host_gen = torch.Generator().manual_seed(args.seed)
+    tree = workload_to_jax(init_resnet(rcfg, generator=host_gen,
+                                       device="cpu"))
+    images = torch.randn(8, 3, 32, 32, generator=host_gen)
+    with torch.no_grad():
+        want = resnet_from_jax(tree, rcfg, device="cpu")(images).float()
+        got = resnet_from_jax(tree, rcfg, device=device)(
+            images.to(device)).float().cpu()
+    resnet_rel = ((got - want).abs().max() / want.abs().max()).item()
+    emit({"phase": "workload_resnet_card_vs_cpu", "config": "resnet18",
+          "images": [8, 3, 32, 32], "rel_err": resnet_rel,
+          "rel_tol": RESNET_REL_TOL})
+    check(resnet_rel <= RESNET_REL_TOL, f"resnet on the card off by "
+          f"{resnet_rel}")
+
+    # checkpoint: stopped at 12 and resumed to 20, against 20 in one go
+    with tempfile.TemporaryDirectory() as ckpt:
+        whole = workload("--model", "mnist", "--steps", "20")
+        stopped = workload("--model", "mnist", "--steps", "12",
+                           "--checkpoint-dir", ckpt, "--checkpoint-every",
+                           "8")
+        resumed = workload("--model", "mnist", "--steps", "8",
+                           "--checkpoint-dir", ckpt)
+        last = max(int(n[5:]) for n in os.listdir(ckpt)
+                   if n.startswith("step_"))
+    resume_rel = (abs(resumed["final_loss"] - whole["final_loss"])
+                  / abs(whole["final_loss"]))
+    emit({"phase": "workload_resume", "uninterrupted": whole,
+          "stopped": stopped, "resumed": resumed, "last_checkpoint": last,
+          "loss_rel_err": resume_rel, "rel_tol": RESUME_REL_TOL})
+    check(last == 20 and resume_rel <= RESUME_REL_TOL,
+          f"resume ended at step {last}, loss off by {resume_rel}")
+
+    # a pod under install_gate and a live tpu-schd
+    gate_env = {hook.ENV_POD_MANAGER_PORT: str(free_port()),
+                "KUBESHARE_POD_NAME": "smoke/trainer"}
+    with tempfile.TemporaryDirectory() as base:
+        arbiter = start_arbiter(
+            base, "smoke-card",
+            [ConfigEntry("smoke/trainer", 1.0, 0.5, 0)],
+            int(gate_env[hook.ENV_POD_MANAGER_PORT]))
+        saved = {k: os.environ.get(k) for k in gate_env}
+        os.environ.update(gate_env)
+        try:
+            gated = workload("--model", "mnist", "--steps", "20")
+        finally:
+            stop_arbiter(arbiter)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    emit({"phase": "workload_gated", **gated})
+    check(gated["tokens_acquired"] > 0, f"gated workload: {gated}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 10. a pod's drain waits for its own stream ---------------------
+    mark("10_drain")
+
+    class _Grant:
+        def acquire(self, est_ms=0.0):
+            return 1e9
+
+        def release(self, used_ms):
+            pass
+
+    busy, mine = torch.cuda.Stream(device), torch.cuda.Stream(device)
+    x = torch.ones(1 << 20, device=device)
+    # load every kernel the pod runs first: loading a kernel's module
+    # (CUDA's lazy loading) waits for the whole device
+    with torch.cuda.stream(mine):
+        hook._block(bool((x * 2 == 2).all()))
+        torch.cuda.Event().record()
+    torch.cuda.synchronize()
+    queued, drain = threading.Event(), {}
+
+    def sleeper():
+        with torch.cuda.stream(busy):
+            torch.cuda._sleep(DRAIN_SLEEP_CYCLES)
+        queued.set()
+
+    def pod():
+        queued.wait(5)
+        gate = SharedChipGate(_Grant(), fail_open=False)
+        with torch.cuda.stream(mine):
+            gate.begin()
+            y = x * 2
+            t0 = time.perf_counter()
+            gate.flush(y)
+            drain["ms"] = 1e3 * (time.perf_counter() - t0)
+            asleep = torch.cuda.Event()
+            asleep.record(busy)
+            drain["other_stream_busy_after"] = not asleep.query()
+            drain["ok"] = bool((y == 2).all().item())
+
+    threads = [threading.Thread(target=sleeper), threading.Thread(target=pod)]
+    t_sleep = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+    torch.cuda.synchronize()
+    sleep_ms = 1e3 * (time.perf_counter() - t_sleep)
+    emit({"phase": "drain", **drain,
+          "other_stream_sleep_ms_at_least": sleep_ms,
+          "limit_ms": DRAIN_MAX_MS})
+    check(drain.get("ok") and drain.get("other_stream_busy_after")
+          and drain["ms"] < DRAIN_MAX_MS,
+          f"a pod's drain waited for another stream: {drain}")
+
+    # ---- 11. the co-location headline -----------------------------------
+    mark("11_headline")
+    headline = run_headline(device=device)
+    emit({"phase": "headline", **headline})
+    # the kernels of one eager MNIST step at the headline's size
+    from kubeshare_tpu_torch.models.mnist import (
+        MnistConfig, init_mnist, make_mnist_train_step,
+    )
+    mnist_step = make_mnist_train_step(
+        init_mnist(MnistConfig(hidden=256), device=device), cuda_graph=False)
+    mnist_in = (torch.randn(1024, 1, 28, 28, generator=gen, device=device),
+                torch.randint(0, 10, (1024,), generator=gen, device=device))
+    for _ in range(3):
+        mnist_step(*mnist_in)
+    emit({"phase": "headline_step_device", "batch": 1024, "steps": 5,
+          "device": device_breakdown(
+              lambda: [mnist_step(*mnist_in) for _ in range(5)],
+              5 * headline["mnist_step_ms"]["eager"])})
+    check(headline["isolated"] and headline["rounds"] == 3
+          and all(n > 0 for n in headline["tokens_acquired"].values())
+          and len(headline["tokens_acquired"]) == 8
+          and all(math.isfinite(headline[k]) and headline[k] > 0
+                  for k in ("value", "vs_baseline")),
+          f"headline: {headline}")
+    mark("end")
+    slice_launches = dict(LAUNCHES)
+    marks = list(phase_started.items())
+    emit({"phase": "timing",
+          "seconds": {name: t1 - t0 for (name, t0), (_, t1)
+                      in zip(marks, marks[1:])},
+          "flash_launches_in_phases_9_to_11": slice_launches})
 
     kernel_row["launches"] = launches["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):

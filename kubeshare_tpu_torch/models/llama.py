@@ -39,7 +39,9 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import _NEG_INF, matmul_f32, mha
 from ..ops.xent import chunked_linear_xent
 from ..utils.device import DeviceLike, resolve_device
-from .common import cross_entropy_loss, embed_init, rmsnorm, rmsnorm_init
+from .common import (
+    cross_entropy_loss, embed_init, init_generator, rmsnorm, rmsnorm_init,
+)
 from .quant import Int8Weight, is_quantized
 
 
@@ -150,11 +152,7 @@ def init_llama(cfg: LlamaConfig = LlamaConfig(),
     float32 with a gradient (the training master copy); otherwise they
     are stored in ``cfg.dtype`` for inference."""
     device = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    elif torch.device(generator.device) != device:
-        raise ValueError(f"generator is on {generator.device}, the model on "
-                         f"{device}")
+    generator = init_generator(generator, device)
     dtype = torch.float32 if trainable else cfg.torch_dtype
     hd = cfg.dim // cfg.num_heads
     embed = embed_init(cfg.vocab, cfg.dim, generator, dtype)

@@ -11,7 +11,8 @@ Scheduling is start-time weighted fair queuing (virtual time): each
 tenant carries ``vtime`` advanced by ``elapsed / weight`` per executed
 call; the dispatcher always runs the backlogged tenant with the least
 vtime. Work within a tenant stays FIFO. Device time is measured by
-waiting for the call's CUDA work to finish (``hook._block``: one
+waiting for the call's CUDA work to finish (``hook._block`` on the
+dispatch thread's current stream, where the call queued it: one
 dispatch in flight — fairness over pipelining, the right trade for
 co-located serving).
 

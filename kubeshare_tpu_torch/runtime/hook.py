@@ -3,9 +3,12 @@
 A wrapped step function acquires a compute token from the node's
 arbiter before dispatching device work and reports the measured time
 back on release. CUDA work is asynchronous, so the wrapper drains the
-device (a CUDA synchronize on the devices of the result's tensors)
-inside the token hold: the device is idle when the token is returned,
-which is what makes the accounting honest.
+caller's work inside the token hold: an event recorded on the calling
+thread's current stream, and waited for. That is the counterpart of the
+reference's ``jax.block_until_ready(result)``: it waits for the work
+this caller queued and not for other streams' work, so pods that
+dispatch from their own threads on their own streams are each billed
+for their own work only.
 
 HBM caps are enforced two ways:
 - cooperatively via ``request_memory`` accounting against the arbiter
@@ -50,8 +53,9 @@ class SharedChipGate:
         drain: Optional[Callable[[Any], Any]] = None,
     ):
         """``drain`` overrides the completion barrier applied inside a
-        token hold (default: a CUDA synchronize on the result's
-        devices; ``fetch_drain`` copies the result to the host)."""
+        token hold (default ``_block``: the calling thread's current
+        stream on the result's devices; ``fetch_drain`` copies the
+        result to the host)."""
         self.client = client
         self.hbm_limit = hbm_limit_bytes
         self.fail_open = fail_open
@@ -215,11 +219,17 @@ def _tensors(result: Any):
 
 
 def _block(result: Any) -> Any:
-    """Wait until the CUDA devices holding the result's tensors (nested
-    in lists, tuples and dicts) have finished their queued work."""
+    """Wait until the work queued so far on the calling thread's current
+    stream, on each CUDA device holding one of the result's tensors
+    (nested in lists, tuples and dicts), has finished. Other streams'
+    work is not waited for: a ``torch.cuda.synchronize`` would wait for
+    every stream on the card, and so for every co-located pod's queued
+    work."""
     devices = {t.device for t in _tensors(result) if t.is_cuda}
     for device in devices:
-        torch.cuda.synchronize(device)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
     return result
 
 
