@@ -8,9 +8,10 @@ nonzero and prints no result:
 1. device: the card, torch/CUDA versions, the kernels' build (nvcc, at
    first use, from csrc/ in this checkout, both libraries at once).
 2. kernel: the CUDA flash-attention forward against its plain PyTorch
-   version on the card, out and lse, at the Llama-3-8B shape and at
-   edge shapes; at the 8B shape the kernel and SDPA timed in turns over
-   several rounds.
+   version on the card, out and lse, at the Llama-3-8B shape, at edge
+   shapes and at head dim 32 (the workload CLI's Llama step, entry()'s
+   forward, a ragged window); at the 8B shape and the two head-dim-32
+   ones the kernel and SDPA timed in turns over several rounds.
 3. forward: ``llama_apply`` at Llama-3-8B width (all 32 layers, random
    weights from the seed) on 2048 tokens; the flash kernel must launch
    once per layer; logits against the plain-attention forward.
@@ -19,8 +20,8 @@ nonzero and prints no result:
 5. sharing: two tenants' decode servers under ``ChipExecutor``.
 6. backward kernels: dq and dk/dv against their plain version on the
    card at phase 2's shapes (some with an lse cotangent), bit-identical
-   on a second launch; at the 8B shape dq, dk/dv and SDPA's backward
-   timed in turns; then at six shapes around it all three kernels
+   on a second launch; at phase 2's timed shapes dq, dk/dv and SDPA's
+   backward timed in turns; then at six shapes around it all three kernels
    against their bounds, and one whole ``flash_backward`` (delta' and
    both kernels) in turns with SDPA's backward.
 7. training: ``llama_loss`` under ``make_train_step`` (Adam) at
@@ -30,20 +31,27 @@ nonzero and prints no result:
    against the dense ones, five steps on one batch whose loss must
    fall.
 8. a trainer and a server share the card under ``ChipExecutor``.
-9. workloads: ``cmd/workload.main`` trains mnist, cifar, resnet, vgg and
-   lstm at the CLI's defaults (batch 256); the loss must be finite and
-   fall (the lstm's uniform random tokens put it at its floor, ln 8192,
-   from the first step: there it must stay). ResNet's logits on the
-   card against the same weights on the CPU; a checkpointed run stopped
-   and resumed against an uninterrupted one; a run under
-   ``install_gate`` and a live ``tpu-schd`` must acquire tokens.
-   ``--model llama`` is not run: its head dim is 32 and the flash
-   kernels take 64 or 128.
+9. workloads: ``cmd/workload.main`` trains mnist, cifar, resnet, vgg,
+   lstm and llama (head dim 32; also with ``--window 64`` and
+   ``--remat``) at the CLI's defaults (batch 256, llama T = 255); the
+   loss must be finite and fall (the lstm's uniform random tokens put it
+   at its floor, ln 8192, from the first step: there it must stay), and
+   each llama step must launch the three flash kernels once per layer
+   (the forward twice with ``--remat``). A step breakdown of each.
+   ResNet's logits on the card against the same weights on the CPU; a
+   checkpointed run stopped and resumed against an uninterrupted one; a
+   run under ``install_gate`` and a live ``tpu-schd`` must acquire
+   tokens.
 10. drain: two threads on two streams; one queues ~50 ms of sleep, the
     other's gate drain must return in well under that.
 11. headline: ``bench/headline.py`` at its published sizes (8 MNIST
     pods, batch 1024, 3 rounds of 6 s phases) under a live
     ``tpu-schd``; every pod must acquire tokens.
+12. entry: ``entry.entry()`` (the reference's flagship Llama, head dim
+    32) on the card: the forward kernel launches once per layer and the
+    logits agree with the same model's plain-attention forward.
+13. kernel benches: ``bench/kernels.py`` at the reference's sizes with
+    fewer rounds (BENCH_CUT), each function's seconds.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device, and
@@ -81,9 +89,6 @@ def check(cond: bool, what: str) -> None:
 # tensor cores, float32 on the CUDA cores, and the HBM3 rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-# Clock cycles the card sleeps ahead of a timed run (cuda_ms): ~10 ms at
-# the H100's 1.98 GHz boost, longer than the host takes to queue 20 calls.
-HOST_AHEAD_CYCLES = 20_000_000
 
 # Tolerances of the kernel against its plain version on the same card.
 # float32: both accumulate exact products in float32 and differ only in
@@ -137,6 +142,13 @@ RESNET_REL_TOL = 5e-2
 RESUME_REL_TOL = 2e-2
 # Steps of each workload in phase 9, at the CLI's defaults otherwise.
 WORKLOAD_STEPS = 30
+# Phase 13 runs bench/kernels.py at the reference's sizes with fewer
+# rounds (the reference's in the comments) to stay within ~90 s; the
+# gate's A/B keeps its 8 rounds of 4 steps.
+BENCH_CUT = {"flash_rounds": 3,   # 6
+             "xent_rounds": 2,    # 4
+             "swa_rounds": 2,     # 4
+             "mfu_steps": 4}      # 2 windows of 6
 # ~50 ms of sleep on the card at the H100's 1.98 GHz boost (phase 10),
 # and the most the other stream's drain may take.
 DRAIN_SLEEP_CYCLES = 100_000_000
@@ -205,6 +217,7 @@ def main() -> int:
         llama_apply_cached, llama_loss, prefill_slot,
     )
     from kubeshare_tpu_torch.models.serving import DecodeServer
+    from kubeshare_tpu_torch.bench import kernels as bench_kernels
     from kubeshare_tpu_torch.models.train import make_train_step
     from kubeshare_tpu_torch.ops import _build
     from kubeshare_tpu_torch.ops.attention import (
@@ -253,37 +266,23 @@ def main() -> int:
     def cuda_ms(fn, reps: int, warmup: int = 3, batches: int = 3) -> float:
         """Device ms per call of ``fn``: CUDA events around ``reps`` calls
         launched back to back, over the count; the median of ``batches``
-        such runs. A sleep queued ahead of the start event keeps the card
-        busy while the host queues the calls, so the card runs them with
-        no gap and the host's time per call (the wrapper's checks,
-        allocations and ctypes call; about 0.08 ms, more than a forward
-        launch takes on the card) is not counted."""
+        such runs (``bench_kernels.time_ms``). A sleep queued ahead of the
+        start event keeps the card busy while the host queues the calls,
+        so the card runs them with no gap and the host's time per call
+        (the wrapper's checks, allocations and ctypes call; about 0.08
+        ms, more than a forward launch takes on the card) is not
+        counted."""
         for _ in range(warmup):
             fn()
-        times = []
-        for _ in range(batches):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(HOST_AHEAD_CYCLES)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / reps)
-        return statistics.median(times)
+        return statistics.median(bench_kernels.time_ms(fn, device, reps)
+                                 for _ in range(batches))
 
     def interleaved_ms(calls: dict, rounds: int = 7,
                        reps: int = 20) -> dict:
         """Median ms per call of each of ``calls``, timed in turns:
         ``rounds`` rounds of ``reps`` back-to-back calls each, so a drift
         of the card's clock within the call reaches all."""
-        times = {name: [] for name in calls}
-        for fn in calls.values():
-            fn()
-        for _ in range(rounds):
-            for name, fn in calls.items():
-                times[name].append(cuda_ms(fn, reps, warmup=0, batches=1))
+        times = bench_kernels.interleaved_ms(calls, device, rounds, reps)
         return {name: statistics.median(t) for name, t in times.items()}
 
     def device_breakdown(fn, wall_ms: float) -> dict:
@@ -333,6 +332,12 @@ def main() -> int:
     # shape llama3_8b gives the kernel at T=2048; the last two are
     # ragged (no tile divides T), as llama_loss's T = seq_len - 1 is.
     main_case = ((1, 32, 8, 2048, 2048, 128), "bfloat16", True, 0)
+    # head dim 32: the workload CLI's Llama step (batch 256, 8 heads, 4 kv
+    # heads, T = seq_len - 1 = 255) and entry()'s forward ([2, 128])
+    cli_case = ((256, 8, 4, 255, 255, 32), "bfloat16", True, 0)
+    entry_case = ((2, 8, 4, 128, 128, 32), "bfloat16", True, 0)
+    # the timed cases and the suffix of their rows' kernel names
+    timed = {main_case: "", cli_case: "_d32", entry_case: "_d32_entry"}
     cases = [
         main_case,
         ((1, 32, 8, 2048, 2048, 128), "float32", True, 0),
@@ -344,8 +349,14 @@ def main() -> int:
         ((2, 8, 4, 512, 512, 64), "float32", False, 0),
         ((1, 8, 2, 1000, 1000, 128), "float32", True, 100),
         ((1, 8, 2, 333, 777, 128), "bfloat16", False, 0),
+        cli_case,
+        (cli_case[0], "float32", True, 0),
+        entry_case,
+        (entry_case[0], "float32", True, 0),
+        ((2, 8, 4, 300, 300, 32), "bfloat16", True, 64),
+        ((2, 8, 4, 300, 300, 32), "float32", True, 64),
     ]
-    kernel_row = None
+    fwd_rows = {}
     for shape, dtype_name, causal, window in cases:
         batch, heads, kv_heads, t_q, t_k, head_dim = shape
         dtype = getattr(torch, dtype_name)
@@ -367,7 +378,8 @@ def main() -> int:
         emit(row)
         check(err_out <= tol["out"] and err_lse <= tol["lse"],
               f"flash kernel disagrees with its plain version: {row}")
-        if (shape, dtype_name, causal, window) == main_case:
+        suffix = timed.get((shape, dtype_name, causal, window))
+        if suffix is not None:
             bound_ms, bound_by = flash_bound_ms(shape, dtype_name, causal,
                                                 window)
             # one timing per call has moved by up to 16 %: the kernel and
@@ -378,7 +390,8 @@ def main() -> int:
                 "sdpa": lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal, enable_gqa=True)})
             kernel_row = {
-                "name": "flash_fwd", "route": "cuda",
+                "name": "flash_fwd" + suffix, "shape": list(shape),
+                "route": "cuda",
                 "source": "kubeshare_tpu_torch/ops/csrc/flash_fwd.cu",
                 # _flash_kernel
                 "replaces": "kubeshare_tpu/ops/attention.py:121",
@@ -396,6 +409,7 @@ def main() -> int:
                   "timing": "median of 7 rounds of 20 back-to-back "
                             "launches queued behind a sleep, in turns "
                             "with SDPA"})
+            fwd_rows[suffix] = kernel_row
         del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
 
@@ -565,7 +579,7 @@ def main() -> int:
     mark("6_backward_kernels")
     # phase 2's cases; an lse cotangent on three of them, as a ring merge
     # would send it
-    glse_cases = {2, 4, 9}
+    glse_cases = {2, 4, 9, 14}
     bwd_rows = {}
     for i, (shape, dtype_name, causal, window) in enumerate(cases):
         batch, heads, kv_heads, t_q, t_k, head_dim = shape
@@ -600,7 +614,8 @@ def main() -> int:
               f"non-finite gradient {shape}")
         check(max(rel.values()) <= tol and identical,
               f"backward kernels disagree with their plain version: {row}")
-        if (shape, dtype_name, causal, window) == main_case:
+        suffix = timed.get((shape, dtype_name, causal, window))
+        if suffix is not None:
             scale = head_dim ** -0.5
             dq_in = (q, k, v, do, lse, attn._flash_delta(out, do))
             timing_args = (causal, scale, window)
@@ -628,8 +643,9 @@ def main() -> int:
                      max(abs_err["dk"], abs_err["dv"]))):
                 bound_ms, bound_by = flash_bound_ms(shape, dtype_name,
                                                     causal, window, kind)
-                bwd_rows[name] = {
-                    "name": name, "route": "cuda",
+                bwd_rows[name + suffix] = {
+                    "name": name + suffix, "shape": list(shape),
+                    "route": "cuda",
                     "source": "kubeshare_tpu_torch/ops/csrc/flash_bwd.cu",
                     # _flash_bwd_dq_kernel / _flash_bwd_dkv_kernel
                     "replaces": ("kubeshare_tpu/ops/attention.py:300"
@@ -831,11 +847,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # The workload slice: none of phases 9-11 runs attention, so the
-    # flash kernels' counts, zeroed here and read after phase 11, stay 0.
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
     # ---- 9. the workloads through the CLI ------------------------------
     mark("9_workloads")
     from kubeshare_tpu_torch.bench.arbiter import (
@@ -859,6 +870,10 @@ def main() -> int:
         check(rc == 0, f"workload {argv} exited {rc}")
         return json.loads(out.getvalue().strip().splitlines()[-1])
 
+    def zero_launches() -> None:
+        for kernel in LAUNCHES:
+            LAUNCHES[kernel] = 0
+
     lstm_floor = math.log(8192)
     bf16_ulp_at_floor = 2.0 ** -4           # bf16 spacing in [8, 16)
     for name in ("mnist", "cifar", "resnet", "vgg", "lstm"):
@@ -875,19 +890,53 @@ def main() -> int:
         else:
             check(doc["final_loss"] < first["final_loss"],
                   f"{name}: loss did not fall: {first} -> {doc}")
-    emit({"phase": "workload", "model": "llama",
-          "skipped": "its head dim is 32; the flash kernels take 64 or 128 "
-                     "(ROADMAP Queue 3)"})
+    # llama (head dim 32) at the CLI's defaults: batch 256, --seq-len 256
+    # (the trunk's T = 255), 4 layers. The counts run from 0 around each
+    # run: the CLI's warm-up forward and backward, then the steps; each
+    # runs every kernel once per layer (the forward twice with --remat).
+    llama_layers = 4
+    llama_runs = {}
+    for extra, steps in (((), WORKLOAD_STEPS),
+                         (("--window", "64"), WORKLOAD_STEPS),
+                         (("--remat",), 2)):
+        first = workload("--model", "llama", *extra, "--steps", "1")
+        zero_launches()
+        doc = workload("--model", "llama", *extra, "--steps", str(steps))
+        torch.cuda.synchronize()
+        got = dict(LAUNCHES)
+        per_fwd_bwd = {"flash_fwd": llama_layers * (2 if extra == ("--remat",)
+                                                    else 1),
+                       "flash_bwd_dq": llama_layers,
+                       "flash_bwd_dkv": llama_layers}
+        want = {n: c * (steps + 1) for n, c in per_fwd_bwd.items()}
+        label = " ".join(("llama",) + extra)
+        llama_runs[label] = got
+        emit({"phase": "workload", **doc, "flags": list(extra),
+              "first_step_loss": first["final_loss"],
+              "flash_launches": got, "flash_launches_want": want})
+        check(math.isfinite(doc["final_loss"]) and doc["steps"] == steps
+              and doc["final_loss"] < first["final_loss"],
+              f"{label}: loss not finite or did not fall: {first} -> {doc}")
+        check(got == want, f"{label}: kernel launches {got}, want {want}")
 
     # where a workload's step spends its time: one Adam step of each at
     # the CLI's defaults, wall time (median of 3) against its kernels
-    for name in ("mnist", "cifar", "resnet", "vgg", "lstm"):
+    llama_step_launches = None
+    for name in ("mnist", "cifar", "resnet", "vgg", "lstm", "llama"):
         net, loss_fn, batch_at = workload_cmd._build(name, 256, device,
                                                      args.seed)
         _, wl_step = make_train_step(loss_fn, net)
         wl_batch = batch_at(0)
         for _ in range(3):
             wl_step(*wl_batch)
+        if name == "llama":      # one step's launches, counted from 0
+            zero_launches()
+            wl_step(*wl_batch)
+            torch.cuda.synchronize()
+            llama_step_launches = dict(LAUNCHES)
+            check(all(n == llama_layers
+                      for n in llama_step_launches.values()),
+                  f"llama step launches {llama_step_launches}")
         wl_times = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -898,6 +947,8 @@ def main() -> int:
         wl_ms = 1e3 * statistics.median(wl_times)
         emit({"phase": "workload_step", "model": name, "batch": 256,
               "step_ms": wl_ms,
+              **({"flash_launches": llama_step_launches}
+                 if name == "llama" else {}),
               "device": device_breakdown(lambda: wl_step(*wl_batch), wl_ms)})
         del net, wl_step, wl_batch
 
@@ -1039,19 +1090,111 @@ def main() -> int:
           and all(math.isfinite(headline[k]) and headline[k] > 0
                   for k in ("value", "vs_baseline")),
           f"headline: {headline}")
+    del mnist_step, mnist_in
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 12. entry(): the reference's flagship forward ------------------
+    mark("12_entry")
+    from kubeshare_tpu_torch.entry import entry
+
+    forward, (entry_model, entry_tokens) = entry()
+    with torch.no_grad():
+        forward(entry_model, entry_tokens)     # loads, the work list
+        torch.cuda.synchronize()
+        zero_launches()
+        entry_logits = forward(entry_model, entry_tokens)
+        torch.cuda.synchronize()
+        entry_launches = dict(LAUNCHES)
+        entry_times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            forward(entry_model, entry_tokens)
+            torch.cuda.synchronize()
+            entry_times.append(time.perf_counter() - t0)
+        entry_plain = llama_apply(entry_model, entry_tokens, use_flash=False)
+    entry_rel = ((entry_logits - entry_plain).abs().max()
+                 / entry_logits.abs().max()).item()
+    emit({"phase": "entry", "config": "__graft_entry__.entry()",
+          "tokens": list(entry_tokens.shape),
+          "head_dim": entry_model.cfg.dim // entry_model.cfg.num_heads,
+          "flash_launches": entry_launches,
+          "rel_err_vs_plain": entry_rel, "rel_tol": LOGIT_REL_TOL,
+          "forward_ms": 1e3 * statistics.median(entry_times)})
+    check(tuple(entry_logits.shape) == (2, 128, entry_model.cfg.vocab)
+          and torch.isfinite(entry_logits).all().item(), "entry logits")
+    check(entry_launches == {"flash_fwd": entry_model.cfg.layers,
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"entry() launches {entry_launches}")
+    check(entry_rel <= LOGIT_REL_TOL, f"entry logits off by {entry_rel}")
+    del entry_model, entry_logits, entry_plain
+
+    # ---- 13. the kernel benches -----------------------------------------
+    mark("13_kernel_benches")
+    bench_seconds, bench_docs = {}, {}
+    for label, run in (
+            ("flash_vs_plain_t4096", lambda: bench_kernels.flash_vs_plain(
+                4096, rounds=BENCH_CUT["flash_rounds"])),
+            ("flash_vs_plain_t2048", lambda: bench_kernels.flash_vs_plain(
+                2048, rounds=BENCH_CUT["flash_rounds"])),
+            ("xent_vs_naive_t2048", lambda: bench_kernels.xent_vs_naive(
+                2048, rounds=BENCH_CUT["xent_rounds"])),
+            ("xent_vs_naive_t4096", lambda: bench_kernels.xent_vs_naive(
+                4096, rounds=BENCH_CUT["xent_rounds"])),
+            ("flash_swa_speedup", lambda: bench_kernels.flash_swa_speedup(
+                rounds=BENCH_CUT["swa_rounds"])),
+            ("llama_train_mfu", lambda: bench_kernels.llama_train_mfu(
+                steps=BENCH_CUT["mfu_steps"])),
+            ("train_gate_overhead", bench_kernels.train_gate_overhead),
+            ("flash_longcontext_ab", bench_kernels.flash_longcontext_ab),
+            ("xent_oom_ab", bench_kernels.xent_oom_ab)):
+        t0 = time.perf_counter()
+        bench_docs[label] = run()
+        bench_seconds[label] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_benches", "seconds": bench_seconds,
+          "cut": BENCH_CUT})
+    for label, doc in bench_docs.items():
+        check(all(math.isfinite(x) for x in doc.values()
+                  if isinstance(x, float)), f"{label}: {doc}")
+    mfu_doc = bench_docs["llama_train_mfu"]
+    check(mfu_doc["mfu"] is None or 0 < mfu_doc["mfu"] < 1,
+          f"mfu: {mfu_doc}")
+    gate_doc = bench_docs["train_gate_overhead"]
+    check(gate_doc["tokens_acquired"] == gate_doc["rounds"]
+          and 0 < gate_doc["train_gate_calls_ms"]
+          < gate_doc["train_gated_step_ms"], f"gate overhead: {gate_doc}")
+    check(bench_docs["flash_longcontext_ab"]["flash_trains"]
+          and bench_docs["xent_oom_ab"]["fused_trains"], "long A/Bs")
+    # where the MFU step's time goes: its kernels under the profiler
+    mfu_step, mfu_tokens, _, _ = bench_kernels.build_train_step(
+        4, 2048, bench_kernels.MFU_CONFIG, device)
+    emit({"phase": "kernel_benches_mfu_step", "batch_x_seq": "4x2048",
+          "step_ms": mfu_doc["llama_step_ms"],
+          "device": device_breakdown(lambda: mfu_step(mfu_tokens),
+                                     mfu_doc["llama_step_ms"])})
+    del mfu_step, mfu_tokens
+
     mark("end")
-    slice_launches = dict(LAUNCHES)
     marks = list(phase_started.items())
     emit({"phase": "timing",
           "seconds": {name: t1 - t0 for (name, t0), (_, t1)
                       in zip(marks, marks[1:])},
-          "flash_launches_in_phases_9_to_11": slice_launches})
+          "flash_launches": {"entry": entry_launches, **llama_runs,
+                             "llama_step": llama_step_launches}})
 
-    kernel_row["launches"] = launches["flash_fwd"]
+    # the 8B rows: launches of the 8B forward (phase 3) and of a training
+    # step (phase 7); the head-dim-32 rows: of one workload CLI llama step
+    fwd_rows[""]["launches"] = launches["flash_fwd"]
+    fwd_rows["_d32"]["launches"] = llama_step_launches["flash_fwd"]
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         bwd_rows[name]["launches"] = train_launches[name]
-    emit({"kernels": [kernel_row, bwd_rows["flash_bwd_dq"],
-                      bwd_rows["flash_bwd_dkv"]]})
+        bwd_rows[name + "_d32"]["launches"] = llama_step_launches[name]
+    emit({"kernels": [fwd_rows[""], bwd_rows["flash_bwd_dq"],
+                      bwd_rows["flash_bwd_dkv"], fwd_rows["_d32"],
+                      bwd_rows["flash_bwd_dq_d32"],
+                      bwd_rows["flash_bwd_dkv_d32"]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

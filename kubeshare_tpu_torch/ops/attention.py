@@ -27,8 +27,10 @@ import torch
 _NEG_INF = -1e30
 
 # Head dims the CUDA kernels are compiled for (a template argument of
-# csrc/flash_*.cu). On CUDA tensors any other head dim raises.
-FLASH_HEAD_DIMS = (64, 128)
+# csrc/flash_*.cu; 32 is the reference's own Llama entry and workload
+# CLI). On CUDA tensors any other head dim raises: nothing pads or falls
+# back.
+FLASH_HEAD_DIMS = (32, 64, 128)
 # The key-tile width of the float32 kernels (BK in csrc/flash_common.cuh).
 # The plain versions walk the same tiles, so the float32 forward's
 # online-softmax rescaling happens at the same places; the bf16 forward

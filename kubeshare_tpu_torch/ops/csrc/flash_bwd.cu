@@ -59,8 +59,8 @@
 //   work is even to within one item.
 // - dq: an item is (b*h, 128 query rows, their keys): the forward's items,
 //   with 64-key K/V tiles. Each consumer warpgroup owns 64 rows:
-//   S = Q K^T and dP = dO V^T are wgmma with both operands in 128-byte-
-//   swizzled shared memory; P and dS = P (dP - delta') are formed in
+//   S = Q K^T and dP = dO V^T are wgmma with both operands in swizzled
+//   shared memory (the forward's boxes, hopper.cuh Tile); P and dS = P (dP - delta') are formed in
 //   registers (an FFMA and an ex2 each) and dS packed to bf16 A
 //   fragments; dQ += dS K is a wgmma with dS from registers and K read
 //   MN-major (the transpose bit) from the tile that fed S. dS K of tile j
@@ -127,26 +127,26 @@ using DqRing = Ring<DQ_STAGES>;    // dq's K/V tiles
 using DkvRing = Ring<DKV_STAGES>;  // dkv's q tiles
 using ItemRing = Ring<2>;          // the tiles an item keeps
 
-// Tiles as D / 64 column halves of [rows][64] bf16 (hopper.cuh); every
-// half is a multiple of 1024 bytes, so all start on the swizzle's period.
+// Tiles as Tile<D>::BOXES column boxes of [rows][COLS] bf16 (hopper.cuh);
+// every box is a multiple of 8 rows, so all start on the swizzle's period.
 template <int D>
 struct DqSmem {
-  static constexpr int HALVES = D / BOX_COLS;
-  __nv_bfloat16 q[2][HALVES][DQ_BM * BOX_COLS];
-  __nv_bfloat16 dout[2][HALVES][DQ_BM * BOX_COLS];
-  __nv_bfloat16 k[DQ_STAGES][HALVES][DQ_BN * BOX_COLS];
-  __nv_bfloat16 v[DQ_STAGES][HALVES][DQ_BN * BOX_COLS];
+  using Tl = Tile<D>;
+  __nv_bfloat16 q[2][Tl::BOXES][DQ_BM * Tl::COLS];
+  __nv_bfloat16 dout[2][Tl::BOXES][DQ_BM * Tl::COLS];
+  __nv_bfloat16 k[DQ_STAGES][Tl::BOXES][DQ_BN * Tl::COLS];
+  __nv_bfloat16 v[DQ_STAGES][Tl::BOXES][DQ_BN * Tl::COLS];
   uint64_t full_q[2], empty_q[2], full_k[DQ_STAGES], full_v[DQ_STAGES];
   uint64_t empty_k[DQ_STAGES], empty_v[DQ_STAGES];
 };
 
 template <int D>
 struct DkvSmem {
-  static constexpr int HALVES = D / BOX_COLS;
-  __nv_bfloat16 k[2][HALVES][DKV_BN * BOX_COLS];
-  __nv_bfloat16 v[2][HALVES][DKV_BN * BOX_COLS];
-  __nv_bfloat16 q[DKV_STAGES][HALVES][DKV_BM * BOX_COLS];
-  __nv_bfloat16 dout[DKV_STAGES][HALVES][DKV_BM * BOX_COLS];
+  using Tl = Tile<D>;
+  __nv_bfloat16 k[2][Tl::BOXES][DKV_BN * Tl::COLS];
+  __nv_bfloat16 v[2][Tl::BOXES][DKV_BN * Tl::COLS];
+  __nv_bfloat16 q[DKV_STAGES][Tl::BOXES][DKV_BM * Tl::COLS];
+  __nv_bfloat16 dout[DKV_STAGES][Tl::BOXES][DKV_BM * Tl::COLS];
   float lse[DKV_STAGES][DKV_BM];  // the q tile's rows (TMA: 128-aligned)
   float delta[DKV_STAGES][DKV_BM];
   uint64_t full_kv[2], empty_kv[2], full_q[DKV_STAGES], empty_q[DKV_STAGES];
@@ -208,41 +208,43 @@ template <int D>
 struct DqRows {
   static constexpr int NS = DQ_BN / 2;  // S and dP accumulators a thread
   static constexpr int NO = D / 2;      // dQ accumulators a thread
+  using Tl = Tile<D>;
   DqSmem<D>& sm;
   int wg, qst, qpos0, qpos1, first, last, t_k, causal, window;
   float scale_log2, lse0, lse1, del0, del1;
 
   // S = Q K^T and dP = dO V^T of the tile in `stage`, started, not
-  // committed; k step kk: 16 columns at 32 bytes into half kk / 4
+  // committed; k step kk: 16 columns, 32 bytes a step into box
+  // kk / KSTEPS
   __device__ __forceinline__ void start_s_dp(float (&s)[NS], float (&dp)[NS],
                                              int stage) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int at = wg * 64 * BOX_COLS + (kk % 4) * 16;
-      WgmmaSS<DQ_BN>::run(
-          s, sw128_desc(sm.q[qst][kk / 4] + at, 16, 1024),
-          sw128_desc(sm.k[stage][kk / 4] + (kk % 4) * 16, 16, 1024), kk > 0);
+      const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
+      const int at = wg * 64 * Tl::COLS + col;
+      WgmmaSS<DQ_BN>::run(s, k_desc<D>(sm.q[qst][box] + at),
+                          k_desc<D>(sm.k[stage][box] + col), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int at = wg * 64 * BOX_COLS + (kk % 4) * 16;
-      WgmmaSS<DQ_BN>::run(
-          dp, sw128_desc(sm.dout[qst][kk / 4] + at, 16, 1024),
-          sw128_desc(sm.v[stage][kk / 4] + (kk % 4) * 16, 16, 1024), kk > 0);
+      const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
+      const int at = wg * 64 * Tl::COLS + col;
+      WgmmaSS<DQ_BN>::run(dp, k_desc<D>(sm.dout[qst][box] + at),
+                          k_desc<D>(sm.v[stage][box] + col), kk > 0);
     }
   }
 
   // dQ += dS K of the tile in `stage`, started, not committed. K is the
   // MN-major B (the transpose bit): keys 16 kk .. 16 kk + 15 are 16 rows
-  // (2048 bytes) into each half, the next 64 columns one half on.
+  // into each box, the next COLS columns one box (DQ_BN rows) on.
   __device__ __forceinline__ void start_dq(float (&dq)[NO],
                                            const uint32_t (&dsf)[NS / 8][4],
                                            int stage) {
 #pragma unroll
     for (int kk = 0; kk < DQ_BN / 16; ++kk)
       WgmmaRS<D>::run(dq, dsf[kk],
-                      sw128_desc(sm.k[stage][0] + kk * 16 * BOX_COLS,
-                                 DQ_BN * 128, 1024));
+                      mn_desc<D>(sm.k[stage][0] + kk * 16 * Tl::COLS,
+                                 DQ_BN * Tl::ROW_BYTES));
   }
 
   // dS = P (dP - delta') in place of dP, with P = 2^(S scale log2 e -
@@ -401,7 +403,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                       const float* __restrict__ delta,
                       const int* __restrict__ work, int heads, int kv_heads,
                       int t_q, int t_k, int causal, float scale, int window) {
-  constexpr int HALVES = D / BOX_COLS;
+  using Tl = Tile<D>;
   extern __shared__ unsigned char smem_raw[];
   DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
   const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
@@ -439,26 +441,26 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         mbar_wait(&sm.empty_q[qr.stage], qr.phase ^ 1);
         mbar_expect_tx(&sm.full_q[qr.stage], 2 * ROWS_BYTES);
 #pragma unroll
-        for (int h = 0; h < HALVES; ++h) {
+        for (int h = 0; h < Tl::BOXES; ++h) {
           tma_load_3d(sm.q[qr.stage][h], &q_map, &sm.full_q[qr.stage],
-                      h * BOX_COLS, it.q0, it.bh);
+                      h * Tl::COLS, it.q0, it.bh);
           tma_load_3d(sm.dout[qr.stage][h], &do_map, &sm.full_q[qr.stage],
-                      h * BOX_COLS, it.q0, it.bh);
+                      h * Tl::COLS, it.q0, it.bh);
         }
         qr.advance();
         for (int k0 = it.lo; k0 < it.hi; k0 += DQ_BN) {
           mbar_wait(&sm.empty_k[ring.stage], ring.phase ^ 1);
           mbar_expect_tx(&sm.full_k[ring.stage], TILE_BYTES);
 #pragma unroll
-          for (int h = 0; h < HALVES; ++h)
+          for (int h = 0; h < Tl::BOXES; ++h)
             tma_load_3d(sm.k[ring.stage][h], &k_map, &sm.full_k[ring.stage],
-                        h * BOX_COLS, k0, kvh);
+                        h * Tl::COLS, k0, kvh);
           mbar_wait(&sm.empty_v[ring.stage], ring.phase ^ 1);
           mbar_expect_tx(&sm.full_v[ring.stage], TILE_BYTES);
 #pragma unroll
-          for (int h = 0; h < HALVES; ++h)
+          for (int h = 0; h < Tl::BOXES; ++h)
             tma_load_3d(sm.v[ring.stage][h], &v_map, &sm.full_v[ring.stage],
-                        h * BOX_COLS, k0, kvh);
+                        h * Tl::COLS, k0, kvh);
           ring.advance();
         }
       }
@@ -499,6 +501,7 @@ template <int D>
 struct DkvKeys {
   static constexpr int NS = DKV_BM / 2;  // S^T and dP^T accumulators
   static constexpr int NO = D / 2;       // dK, dV accumulators a thread
+  using Tl = Tile<D>;
   DkvSmem<D>& sm;
   int wg, kst, key0, key1, first, t_q, t_k, offset, causal, window;
   float scale_log2;
@@ -509,23 +512,22 @@ struct DkvKeys {
                                              int stage) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int at = wg * 64 * BOX_COLS + (kk % 4) * 16;
-      WgmmaSS<DKV_BM>::run(
-          s, sw128_desc(sm.k[kst][kk / 4] + at, 16, 1024),
-          sw128_desc(sm.q[stage][kk / 4] + (kk % 4) * 16, 16, 1024), kk > 0);
+      const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
+      const int at = wg * 64 * Tl::COLS + col;
+      WgmmaSS<DKV_BM>::run(s, k_desc<D>(sm.k[kst][box] + at),
+                           k_desc<D>(sm.q[stage][box] + col), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int at = wg * 64 * BOX_COLS + (kk % 4) * 16;
-      WgmmaSS<DKV_BM>::run(
-          dp, sw128_desc(sm.v[kst][kk / 4] + at, 16, 1024),
-          sw128_desc(sm.dout[stage][kk / 4] + (kk % 4) * 16, 16, 1024),
-          kk > 0);
+      const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
+      const int at = wg * 64 * Tl::COLS + col;
+      WgmmaSS<DKV_BM>::run(dp, k_desc<D>(sm.v[kst][box] + at),
+                           k_desc<D>(sm.dout[stage][box] + col), kk > 0);
     }
   }
 
   // acc += A B with B = the q tile `tile` of `stage` read MN-major (query
-  // rows 16 kk .. 16 kk + 15 are 16 rows into each half), started, not
+  // rows 16 kk .. 16 kk + 15 are 16 rows into each box), started, not
   // committed
   __device__ __forceinline__ static void start_rs(
       float (&acc)[NO], const uint32_t (&a)[NS / 8][4],
@@ -533,8 +535,8 @@ struct DkvKeys {
 #pragma unroll
     for (int kk = 0; kk < DKV_BM / 16; ++kk)
       WgmmaRS<D>::run(acc, a[kk],
-                      sw128_desc(tile + kk * 16 * BOX_COLS, DKV_BM * 128,
-                                 1024));
+                      mn_desc<D>(tile + kk * 16 * Tl::COLS,
+                                 DKV_BM * Tl::ROW_BYTES));
   }
 
   // P^T = 2^(S^T scale log2 e - lse log2 e) in place of S^T, 0 where
@@ -736,7 +738,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                        int* __restrict__ counters,
                        const int* __restrict__ work, int heads, int kv_heads,
                        int t_q, int t_k, int causal, float scale, int window) {
-  constexpr int HALVES = D / BOX_COLS;
+  using Tl = Tile<D>;
   extern __shared__ unsigned char smem_raw[];
   DkvSmem<D>& sm = aligned_smem<DkvSmem<D>>(smem_raw);
   const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
@@ -777,11 +779,11 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         mbar_wait(&sm.empty_kv[kr.stage], kr.phase ^ 1);
         mbar_expect_tx(&sm.full_kv[kr.stage], 2 * KV_BYTES);
 #pragma unroll
-        for (int h = 0; h < HALVES; ++h) {
+        for (int h = 0; h < Tl::BOXES; ++h) {
           tma_load_3d(sm.k[kr.stage][h], &k_map, &sm.full_kv[kr.stage],
-                      h * BOX_COLS, it.k0, it.bkv);
+                      h * Tl::COLS, it.k0, it.bkv);
           tma_load_3d(sm.v[kr.stage][h], &v_map, &sm.full_kv[kr.stage],
-                      h * BOX_COLS, it.k0, it.bkv);
+                      h * Tl::COLS, it.k0, it.bkv);
         }
         kr.advance();
         for (int qr0 = it.lo; qr0 < it.hi; qr0 += DKV_BM) {
@@ -789,10 +791,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
           mbar_wait(&sm.empty_q[ring.stage], ring.phase ^ 1);
           mbar_expect_tx(full, Q_BYTES);
 #pragma unroll
-          for (int h = 0; h < HALVES; ++h) {
-            tma_load_3d(sm.q[ring.stage][h], &q_map, full, h * BOX_COLS, qr0,
+          for (int h = 0; h < Tl::BOXES; ++h) {
+            tma_load_3d(sm.q[ring.stage][h], &q_map, full, h * Tl::COLS, qr0,
                         bh);
-            tma_load_3d(sm.dout[ring.stage][h], &do_map, full, h * BOX_COLS,
+            tma_load_3d(sm.dout[ring.stage][h], &do_map, full, h * Tl::COLS,
                         qr0, bh);
           }
           tma_load_1d(sm.lse[ring.stage], &lse_map, full, bh * stride + qr0);
@@ -1224,6 +1226,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     return launch_dq<64>(is_bf16, q, k, v, dout, lse, delta, dq, w, blocks,
                          batch, heads, kv_heads, t_q, t_k, causal, scale,
                          window, s);
+  if (head_dim == 32)
+    return launch_dq<32>(is_bf16, q, k, v, dout, lse, delta, dq, w, blocks,
+                         batch, heads, kv_heads, t_q, t_k, causal, scale,
+                         window, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1248,6 +1254,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                            causal, scale, window, s);
   if (head_dim == 64)
     return launch_dkv<64>(is_bf16, q, k, v, dout, lse, delta, dk, dv, w, sc,
+                          ct, blocks, batch, heads, kv_heads, t_q, t_k,
+                          causal, scale, window, s);
+  if (head_dim == 32)
+    return launch_dkv<32>(is_bf16, q, k, v, dout, lse, delta, dk, dv, w, sc,
                           ct, blocks, batch, heads, kv_heads, t_q, t_k,
                           causal, scale, window, s);
   return (int)cudaErrorInvalidValue;

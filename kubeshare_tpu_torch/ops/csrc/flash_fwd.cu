@@ -46,8 +46,10 @@
 //   start before V lands and a K tile is released once S is done. It gives
 //   up registers (setmaxnreg) to the consumers, whose float32 accumulators
 //   (S: 64 x 128, O: 64 x D a warpgroup) then fit without spills.
-// - S = Q K^T is a wgmma with both operands in 128-byte-swizzled shared
-//   memory; O += P V a wgmma with P from registers (the S accumulator's
+// - S = Q K^T is a wgmma with both operands in swizzled shared memory
+//   (64-column boxes with the 128-byte swizzle at D = 64 and 128, one
+//   32-column box with the 64-byte swizzle at D = 32; hopper.cuh Tile);
+//   O += P V a wgmma (N = D) with P from registers (the S accumulator's
 //   layout is the A fragment's, so P is packed to bf16 in place) and V
 //   MN-major from shared memory (the transpose bit).
 // - Overlap inside a warpgroup: S of tile j and P V of tile j - 1 are
@@ -87,16 +89,16 @@ constexpr int FWD_CONSUMERS = 256;  // threads of the consumer warpgroups
 constexpr int FWD_BN = 128;         // keys per K/V tile
 constexpr int FWD_STAGES = 2;       // depth of the K/V ring
 
-// Tiles as D / 64 column halves of [rows][64] bf16 (hopper.cuh); every
-// half is a multiple of 1024 bytes, so all start on the swizzle's period.
+// Tiles as Tile<D>::BOXES column boxes of [rows][COLS] bf16 (hopper.cuh);
+// every box is a multiple of 8 rows, so all start on the swizzle's period.
 // K and V of a stage have their own full and empty barriers: a K tile is
 // released as soon as its S product is done.
 template <int D>
 struct FwdSmem {
-  static constexpr int HALVES = D / BOX_COLS;
-  __nv_bfloat16 q[HALVES][FWD_BM * BOX_COLS];
-  __nv_bfloat16 k[FWD_STAGES][HALVES][FWD_BN * BOX_COLS];
-  __nv_bfloat16 v[FWD_STAGES][HALVES][FWD_BN * BOX_COLS];
+  using Tl = Tile<D>;
+  __nv_bfloat16 q[Tl::BOXES][FWD_BM * Tl::COLS];
+  __nv_bfloat16 k[FWD_STAGES][Tl::BOXES][FWD_BN * Tl::COLS];
+  __nv_bfloat16 v[FWD_STAGES][Tl::BOXES][FWD_BN * Tl::COLS];
   uint64_t full_q, empty_q, full_k[FWD_STAGES], full_v[FWD_STAGES];
   uint64_t empty_k[FWD_STAGES], empty_v[FWD_STAGES];
 };
@@ -125,6 +127,7 @@ template <int D>
 struct FwdRows {
   static constexpr int NS = FWD_BN / 2;  // score accumulators a thread
   static constexpr int NO = D / 2;       // output accumulators a thread
+  using Tl = Tile<D>;
   FwdSmem<D>& sm;
   int wg, qpos0, qpos1, first, last, t_k, causal, window;
   float scale_log2;
@@ -135,11 +138,11 @@ struct FwdRows {
   __device__ __forceinline__ void start_qk(float (&s)[NS], int stage) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      // k step kk: 16 columns at 32 bytes into half kk / 4
-      const uint64_t a = sw128_desc(
-          sm.q[kk / 4] + wg * 64 * BOX_COLS + (kk % 4) * 16, 16, 1024);
-      const uint64_t b =
-          sw128_desc(sm.k[stage][kk / 4] + (kk % 4) * 16, 16, 1024);
+      // k step kk: 16 columns, 32 bytes a step into box kk / KSTEPS
+      const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
+      const uint64_t a =
+          k_desc<D>(sm.q[box] + wg * 64 * Tl::COLS + col);
+      const uint64_t b = k_desc<D>(sm.k[stage][box] + col);
       WgmmaSS<FWD_BN>::run(s, a, b, kk > 0);
     }
   }
@@ -150,10 +153,10 @@ struct FwdRows {
                                            int stage) {
 #pragma unroll
     for (int kk = 0; kk < FWD_BN / 16; ++kk) {
-      // keys 16 kk .. 16 kk + 15: 16 rows (2048 bytes) into each half;
-      // the next 64 output columns one half (FWD_BN * 128 bytes) on
-      const uint64_t b = sw128_desc(sm.v[stage][0] + kk * 16 * BOX_COLS,
-                                    FWD_BN * 128, 1024);
+      // keys 16 kk .. 16 kk + 15: 16 rows into each box; the next COLS
+      // output columns one box (FWD_BN rows) on
+      const uint64_t b = mn_desc<D>(sm.v[stage][0] + kk * 16 * Tl::COLS,
+                                    FWD_BN * Tl::ROW_BYTES);
       WgmmaRS<D>::run(o, pf[kk], b);
     }
   }
@@ -374,7 +377,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                    const int* __restrict__ work, int heads, int kv_heads,
                    int t_q, int t_k, int causal, float scale_log2,
                    int window) {
-  constexpr int HALVES = D / BOX_COLS;
+  using Tl = Tile<D>;
   extern __shared__ unsigned char smem_raw[];
   FwdSmem<D>& sm = aligned_smem<FwdSmem<D>>(smem_raw);
   const int begin = work[blockIdx.x], end = work[blockIdx.x + 1];
@@ -408,8 +411,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         mbar_wait(&sm.empty_q, ((i - begin) & 1) ^ 1);
         mbar_expect_tx(&sm.full_q, FWD_BM * D * sizeof(__nv_bfloat16));
 #pragma unroll
-        for (int h = 0; h < HALVES; ++h)
-          tma_load_3d(sm.q[h], &q_map, &sm.full_q, h * BOX_COLS, it.q0,
+        for (int h = 0; h < Tl::BOXES; ++h)
+          tma_load_3d(sm.q[h], &q_map, &sm.full_q, h * Tl::COLS, it.q0,
                       it.bh);
         for (int k0 = it.lo; k0 < it.hi; k0 += FWD_BN) {
           // a stage is free once both warpgroups released it; the first
@@ -417,15 +420,15 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
           mbar_wait(&sm.empty_k[ring.stage], ring.phase ^ 1);
           mbar_expect_tx(&sm.full_k[ring.stage], KV_BYTES);
 #pragma unroll
-          for (int h = 0; h < HALVES; ++h)
+          for (int h = 0; h < Tl::BOXES; ++h)
             tma_load_3d(sm.k[ring.stage][h], &k_map, &sm.full_k[ring.stage],
-                        h * BOX_COLS, k0, kvh);
+                        h * Tl::COLS, k0, kvh);
           mbar_wait(&sm.empty_v[ring.stage], ring.phase ^ 1);
           mbar_expect_tx(&sm.full_v[ring.stage], KV_BYTES);
 #pragma unroll
-          for (int h = 0; h < HALVES; ++h)
+          for (int h = 0; h < Tl::BOXES; ++h)
             tma_load_3d(sm.v[ring.stage][h], &v_map, &sm.full_v[ring.stage],
-                        h * BOX_COLS, k0, kvh);
+                        h * Tl::COLS, k0, kvh);
           ring.advance();
         }
       }
@@ -645,6 +648,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                        kv_heads, t_q, t_k, causal, scale, window, s);
   if (head_dim == 64)
     return launch<64>(is_bf16, q, k, v, out, lse, w, blocks, batch, heads,
+                      kv_heads, t_q, t_k, causal, scale, window, s);
+  if (head_dim == 32)
+    return launch<32>(is_bf16, q, k, v, out, lse, w, blocks, batch, heads,
                       kv_heads, t_q, t_k, causal, scale, window, s);
   return (int)cudaErrorInvalidValue;
 }

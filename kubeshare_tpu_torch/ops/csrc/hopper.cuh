@@ -5,12 +5,15 @@
 // start. Raw PTX, so the kernels build in seconds with no header beyond
 // the CUDA toolkit's.
 //
-// Shared-memory tiles are D/64 column halves of [rows][64] bf16, each
-// written by one TMA box with the 128-byte swizzle (a box's inner extent
-// is at most 128 bytes under it): row r sits at r * 128 bytes and its
-// 16-byte chunk c at chunk c ^ (r % 8). Every half starts on a 1024-byte
-// boundary, the swizzle's period, so a wgmma descriptor may point anywhere
-// inside it by plain address arithmetic.
+// Shared-memory tiles are column boxes of [rows][COLS] bf16, each written
+// by one TMA box with the swizzle as wide as a box's row (a box's inner
+// extent is at most the swizzle's width): COLS = 64 with the 128-byte
+// swizzle for head dims 64 and 128, COLS = 32 with the 64-byte swizzle
+// for head dim 32 (Tile<D>). Row r sits at r * ROW_BYTES and its 16-byte
+// chunk c at chunk c ^ (r % 8) (128-byte) or c ^ ((r / 2) % 4) (64-byte).
+// Every box starts on a multiple of 8 rows (1024 or 512 bytes, the
+// swizzle's period), so a wgmma descriptor may point anywhere inside it
+// by plain address arithmetic.
 
 #pragma once
 
@@ -21,7 +24,24 @@
 
 namespace {
 
-constexpr int BOX_COLS = 64;  // bf16 columns of one swizzled TMA box
+// bf16 columns of one swizzled TMA box of a head dim d row
+constexpr int box_cols(int d) { return d >= 64 ? 64 : 32; }
+
+// The tiling of a head dim D: COLS columns a box (box_cols), BOXES boxes
+// a row, ROW_BYTES a box row (the swizzle's width), GROUP_BYTES for 8
+// rows (the swizzle's period, the stride between 8-row groups), KSTEPS
+// k16 steps (32 bytes each) in a box.
+template <int D>
+struct Tile {
+  static constexpr int COLS = box_cols(D);
+  static constexpr int BOXES = D / COLS;
+  static constexpr int ROW_BYTES = COLS * 2;
+  static constexpr int GROUP_BYTES = 8 * ROW_BYTES;
+  static constexpr int KSTEPS = COLS / 16;
+  static_assert(D == 32 || D == 64 || D == 128,
+                "the flash kernels are built for head dims 32, 64, 128");
+  static_assert(BOXES >= 1 && BOXES * COLS == D, "a row is whole boxes");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -137,18 +157,36 @@ __device__ __forceinline__ void regs_alloc() {
 
 // ---- wgmma ------------------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled operand in shared memory. lbo / sbo in
-// bytes. K-major (the depth contiguous, as Q and K): sbo is the stride
-// between 8-row groups (1024) and lbo is unused. MN-major (the output
-// columns contiguous, as V in P V): lbo is the stride between 64-column
-// halves and sbo between groups of 8 depth rows (1024).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
+// Descriptor of a swizzled operand in shared memory whose box rows are
+// ROW_BYTES wide (128: the 128-byte swizzle, layout type 1; 64: the
+// 64-byte swizzle, layout type 2). lbo / sbo in bytes. K-major (the depth
+// contiguous, as Q and K): sbo is the stride between 8-row groups (8 box
+// rows) and lbo is unused. MN-major (the output columns contiguous, as V
+// in P V): lbo is the stride between column boxes and sbo between groups
+// of 8 depth rows (8 box rows).
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t sw_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "128- or 64-byte rows");
   uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-  d |= 1ull << 62;  // layout: 128-byte swizzle
+  d |= (ROW_BYTES == 128 ? 1ull : 2ull) << 62;  // the swizzle's layout type
   return d;
+}
+
+// A K-major operand of head dim D at p: k step kk of a box is p + (kk %
+// KSTEPS) * 16, the next box BOXES boxes on (the caller's indexing).
+template <int D>
+__device__ __forceinline__ uint64_t k_desc(const void* p) {
+  return sw_desc<Tile<D>::ROW_BYTES>(p, 16, Tile<D>::GROUP_BYTES);
+}
+
+// An MN-major B operand of head dim D at p (k step kk: 16 box rows on),
+// whose column boxes are box_bytes apart.
+template <int D>
+__device__ __forceinline__ uint64_t mn_desc(const void* p, uint32_t box_bytes) {
+  return sw_desc<Tile<D>::ROW_BYTES>(p, box_bytes, Tile<D>::GROUP_BYTES);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -182,6 +220,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define HK_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define HK_F16(d, i) \
   HK_F4(d, i), HK_F4(d, i + 4), HK_F4(d, i + 8), HK_F4(d, i + 12)
+#define HK_R16                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HK_R32                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -230,6 +270,20 @@ template <int N>
 struct WgmmaRS;
 
 template <>
+struct WgmmaRS<32> {
+  __device__ __forceinline__ static void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HK_R16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : HK_F16(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
 struct WgmmaRS<64> {
   __device__ __forceinline__ static void run(float (&d)[32],
                                              const uint32_t (&a)[4],
@@ -259,6 +313,7 @@ struct WgmmaRS<128> {
 
 #undef HK_F4
 #undef HK_F16
+#undef HK_R16
 #undef HK_R32
 #undef HK_R64
 
@@ -287,22 +342,24 @@ EncodeTiledFn encode_tiled() {
 }
 
 // The 3-D map (D, rows, matrices) of a contiguous [matrices, rows, D] bf16
-// tensor, read in boxes of 64 columns x box_rows rows of one matrix with
-// the 128-byte swizzle; rows past `rows` read as zeros.
+// tensor, read in boxes of box_cols(D) columns x box_rows rows of one
+// matrix with the swizzle as wide as a box row (128 bytes at D >= 64, 64
+// at D = 32); rows past `rows` read as zeros.
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int d, int rows,
                        int matrices, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const int cols = box_cols(d);
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)matrices};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {BOX_COLS, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

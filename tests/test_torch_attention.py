@@ -85,6 +85,34 @@ def test_flash_with_lse_matches_jax_interpret(causal, window):
                                atol=F32_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,hkv", [
+    (True, 0, 4),              # causal MHA
+    (False, 0, 2),             # non-causal, GQA 4/2
+    (True, 64, 2),             # sliding window, GQA 4/2
+    (True, 0, 1),              # MQA
+])
+def test_flash_head_dim_32_matches_jax_interpret(causal, window, hkv, dtype):
+    """Head dim 32, the reference's own Llama (dim 256, 8 heads): out and
+    lse of the port's plain version against the JAX Pallas kernel in
+    interpret mode, T=256, blocks of 128. bf16 out to 2e-2, lse to 1e-4
+    (float32 in both)."""
+    q, k, v = _qkv(9 + hkv, hkv=hkv, tq=256, d=32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want_out, want_lse = jattn.flash_attention_with_lse(
+        *_jax(q, k, v, dtype=jdt), causal, None, 128, 128, True, window)
+    got_out, got_lse = tattn.flash_attention_with_lse(
+        *_torch(q, k, v, dtype=tdt), causal, window=window)
+    assert got_out.dtype == tdt and got_lse.dtype == torch.float32
+    out_tol, lse_tol = (F32_TOL, F32_TOL) if dtype == "float32" else (
+        BF16_TOL, 1e-4)
+    np.testing.assert_allclose(got_out.float().numpy(),
+                               np.asarray(want_out, np.float32),
+                               atol=out_tol, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=lse_tol, rtol=0)
+
+
 @pytest.mark.parametrize("causal,window,tq,tk", [
     (True, 0, 200, 200),       # ragged: no tile divides T
     (True, 37, 200, 200),      # ragged with a window
@@ -176,7 +204,7 @@ def test_mha_dispatch_rule(monkeypatch):
     ((1, 4, 777, 128), (1, 2, 333, 128), True, False),    # causal Tq > Tk
     ((1, 4, 777, 128), (1, 2, 333, 128), False, True),
     ((1, 4, 256, 96), (1, 2, 256, 96), True, False),      # head dim 96
-    ((1, 4, 256, 32), (1, 2, 256, 32), False, False),     # head dim 32
+    ((1, 4, 256, 32), (1, 2, 256, 32), False, True),      # head dim 32
 ])
 def test_flash_eligible_is_what_the_kernels_take(q_shape, k_shape, causal,
                                                  want):

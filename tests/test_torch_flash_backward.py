@@ -123,6 +123,30 @@ def test_flash_with_lse_vjp_matches_jax(causal, window, hkv, tq, dtype):
         assert _rel(g, w) <= REL_TOL[dtype], (name, _rel(g, w))
 
 
+# head dim 32, the reference's own Llama (dim 256, 8 heads): (causal,
+# window, hkv, tq, with an lse cotangent), heads 4
+D32_CASES = [
+    (True, 0, 4, 128, False),   # causal MHA
+    (False, 0, 2, 128, True),   # non-causal, GQA 4/2
+    (True, 64, 2, 256, True),   # sliding window
+    (True, 0, 1, 256, False),   # MQA, two q and k tiles
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,hkv,tq,with_lse", D32_CASES)
+def test_head_dim_32_vjp_matches_jax(causal, window, hkv, tq, with_lse,
+                                     dtype):
+    q, k, v, do, g_lse = _inputs(50 + hkv + tq, hkv=hkv, tq=tq, d=32)
+    args = (q, k, v, do, g_lse if with_lse else None, dtype, causal,
+            window, with_lse)
+    got = _port_grads(*args)
+    want = _jax_grads(*args)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape[-1] == 32
+        assert _rel(g, w) <= REL_TOL[dtype], (name, _rel(g, w))
+
+
 def _plain_grads(q, k, v, do, g_lse, causal, window):
     """Autograd through the port's plain attention and a direct
     logsumexp of the same masked scores."""

@@ -58,6 +58,16 @@ CASES = [
     ((1, 2, 2, 200, 200, 128), True, 37, False),     # ragged window
 ]
 
+# head dim 32 (one 32-column box with the 64-byte swizzle): the workload
+# CLI's Llama shape (batch 256, T = seq_len - 1 = 255), entry()'s, a
+# ragged window with GQA 4/1 and a causal Tq < Tk
+D32_CASES = [
+    ((256, 8, 4, 255, 255, 32), True, 0, False),
+    ((2, 8, 4, 128, 128, 32), True, 0, True),
+    ((1, 8, 2, 200, 200, 32), True, 37, True),
+    ((1, 4, 1, 70, 333, 32), True, 0, False),
+]
+
 # what the bf16 backward's design adds: more dk/dv items than SMs (2 * 8
 # kv heads * 4 key tiles * 4 query heads = 256), a group of 8 query heads
 # summed in order and a group of one written directly, a window narrower
@@ -71,7 +81,7 @@ BWD_CASES = CASES + [
     ((1, 4, 2, 256, 256, 128), True, 17, True),
     ((1, 8, 2, 200, 200, 128), True, 0, False),
     ((1, 4, 2, 100, 300, 64), True, 0, True),
-]
+] + D32_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -108,7 +118,7 @@ def test_backward_kernels_match_plain_version(cuda, dtype, shape, causal,
 FWD_CASES = [case[:3] for case in CASES] + [
     ((1, 8, 2, 17, 17, 128), True, 0),
     ((2, 32, 8, 512, 512, 128), True, 0),
-]
+] + [case[:3] for case in D32_CASES]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -240,6 +250,37 @@ def test_llama_loss_at_ragged_length_launches_every_kernel(cuda):
     params = list(model.parameters())
     gen = torch.Generator(device=cuda).manual_seed(7)
     tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=gen,
+                           device=cuda)
+    for name in tattn.LAUNCHES:
+        tattn.LAUNCHES[name] = 0
+    got = torch.autograd.grad(llama_loss(model, tokens), params)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES == {"flash_fwd": 4, "flash_bwd_dq": 4,
+                              "flash_bwd_dkv": 4}
+    want = torch.autograd.grad(llama_loss(model, tokens, use_flash=False),
+                               params)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _rel(g, w) <= 5e-2
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_llama_loss_at_head_dim_32_launches_every_kernel(cuda, window):
+    """The workload CLI's Llama (dim 256, 8 heads: head dim 32) at its
+    T = seq_len - 1 = 255: each layer runs the forward, dq and dk/dv
+    kernels once per step, full causal or windowed, and the gradients
+    agree with plain attention's (5e-2 of each tensor's max abs)."""
+    from kubeshare_tpu_torch.models.llama import (
+        LlamaConfig, init_llama, llama_loss,
+    )
+
+    cfg = LlamaConfig(vocab=2048, dim=256, layers=4, num_heads=8,
+                      num_kv_heads=4, mlp_dim=512, max_seq_len=256,
+                      window=window)
+    model = init_llama(cfg, device=cuda, trainable=True)
+    params = list(model.parameters())
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab, (8, 256), generator=gen,
                            device=cuda)
     for name in tattn.LAUNCHES:
         tattn.LAUNCHES[name] = 0

@@ -201,22 +201,30 @@ def make_work(ms: float):
 
 class TestExecutor:
     def test_weighted_order_under_backlog(self):
+        """Both tenants' backlogs are queued before the dispatcher picks
+        its second item: the first item (one of the slow tenant's) waits
+        on an event set once all 24 are in, so the order of the rest is
+        the weights' and not the submission loop's."""
         ex = ChipExecutor({"fast": 3.0, "slow": 1.0})
         order, futs = [], []
+        all_queued = threading.Event()
 
-        def tagged(tag):
+        def tagged(tag, first=False):
             base = make_work(3)
 
             def run():
+                if first:
+                    assert all_queued.wait(30)
                 base()
                 order.append(tag)
 
             return run
 
-        for _ in range(12):
-            futs.append(ex.submit("slow", tagged("s")))
+        for i in range(12):
+            futs.append(ex.submit("slow", tagged("s", first=i == 0)))
         for _ in range(12):
             futs.append(ex.submit("fast", tagged("f")))
+        all_queued.set()
         for f in futs:
             f.result(timeout=30)
         ex.close()

@@ -50,6 +50,23 @@ def test_every_model_prints_the_reference_line(capsys, model):
     assert doc["samples_per_s"] > 0
 
 
+@pytest.mark.parametrize("extra", [[], ["--remat"]])
+def test_llama_trains_with_a_window(capsys, extra):
+    """--model llama --window (sliding-window attention in every layer),
+    with and without --remat: a window narrower than the sequence
+    changes the loss, and remat gives the same one."""
+    base = ["--model", "llama", "--steps", "2", "--batch", "2",
+            "--seq-len", "24"]
+    doc = run(capsys, *base, "--window", "8", *extra)
+    assert set(doc) == KEYS and doc["steps"] == 2
+    assert doc["final_loss"] == doc["final_loss"]      # finite, not NaN
+    full = run(capsys, *base)
+    assert doc["final_loss"] != full["final_loss"]
+    if extra:
+        assert doc["final_loss"] == run(capsys, *base, "--window",
+                                        "8")["final_loss"]
+
+
 def test_keys_are_the_reference_clis(capsys):
     assert ref_workload.main(["--model", "mnist", "--steps", "1",
                               "--batch", "2"]) == 0
