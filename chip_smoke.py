@@ -15,9 +15,12 @@ nonzero and prints no result:
 3. forward: ``llama_apply`` at Llama-3-8B width (all 32 layers, random
    weights from the seed) on 2048 tokens; the flash kernel must launch
    once per layer; logits against the plain-attention forward.
-4. serving: ``DecodeServer`` (8 slots) answers 12 prompts, with
-   retirement and re-admission; prefill logits against ``llama_apply``.
-5. sharing: two tenants' decode servers under ``ChipExecutor``.
+4. serving: ``DecodeServer`` (8 slots, its decode step a CUDA graph)
+   answers 12 prompts, with retirement and re-admission; prefill logits
+   against ``llama_apply``; the same script on an eager server
+   (``cuda_graph=False``) must give the same tokens, and both ms a step
+   are printed; a slot's logits against a solo decode, eager and graphed.
+5. sharing: two tenants' decode servers (graphed) under ``ChipExecutor``.
 6. backward kernels: dq and dk/dv against their plain version on the
    card at phase 2's shapes (some with an lse cotangent), bit-identical
    on a second launch; at phase 2's timed shapes dq, dk/dv and SDPA's
@@ -52,6 +55,17 @@ nonzero and prints no result:
     logits agree with the same model's plain-attention forward.
 13. kernel benches: ``bench/kernels.py`` at the reference's sizes with
     fewer rounds (BENCH_CUT), each function's seconds.
+14. serving bench: ``bench/serving.py`` (BASELINE config 5: 4 graphed
+    decode pods under a live ``tpu-schd``), bf16 and int8, one round of
+    shorter phases (POD_BENCH_CUT); every pod must acquire tokens. Where
+    a pod's decode step goes, graphed and eager.
+15. contbatch: ``bench/configs.py``'s continuous-batching bench (Poisson
+    arrivals into a graphed 8-slot server), shorter; admissions > 0 and
+    every token in the vocabulary.
+16. lstm gang: ``bench/configs.py`` (BASELINE config 3: 5 graphed LSTM
+    training pods behind one barrier under ``tpu-schd``), one round of
+    shorter phases; every pod must acquire tokens, the losses finite.
+    Where a pod's step goes, graphed and eager.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device, and
@@ -149,6 +163,12 @@ BENCH_CUT = {"flash_rounds": 3,   # 6
              "xent_rounds": 2,    # 4
              "swa_rounds": 2,     # 4
              "mfu_steps": 4}      # 2 windows of 6
+# Phases 14-16 run bench/serving.py and bench/configs.py at the
+# reference's sizes with one round of shorter phases (the reference's in
+# the comments), about a minute together.
+POD_BENCH_CUT = {"serving_phase_s": 3.0,   # 6, 3 rounds
+                 "contbatch_s": 6.0,       # 15 (3 rounds of 5)
+                 "gang_phase_s": 3.0}      # 5, 3 rounds
 # ~50 ms of sleep on the card at the H100's 1.98 GHz boost (phase 10),
 # and the most the other stream's drain may take.
 DRAIN_SLEEP_CYCLES = 100_000_000
@@ -217,7 +237,9 @@ def main() -> int:
         llama_apply_cached, llama_loss, prefill_slot,
     )
     from kubeshare_tpu_torch.models.serving import DecodeServer
+    from kubeshare_tpu_torch.bench import configs as pod_configs
     from kubeshare_tpu_torch.bench import kernels as bench_kernels
+    from kubeshare_tpu_torch.bench import serving as pod_serving
     from kubeshare_tpu_torch.models.train import make_train_step
     from kubeshare_tpu_torch.ops import _build
     from kubeshare_tpu_torch.ops.attention import (
@@ -284,6 +306,17 @@ def main() -> int:
         of the card's clock within the call reaches all."""
         times = bench_kernels.interleaved_ms(calls, device, rounds, reps)
         return {name: statistics.median(t) for name, t in times.items()}
+
+    def wall_ms(fn, reps: int) -> float:
+        """Host ms per call of ``fn``: ``reps`` calls that end in a sync
+        of the card, after one call that is not timed."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
 
     def device_breakdown(fn, wall_ms: float) -> dict:
         """Kernel time of one call of ``fn`` under torch.profiler, its
@@ -487,58 +520,95 @@ def main() -> int:
                   "its prefill logits")
         check(max(prefill_rel) <= LOGIT_REL_TOL,
               f"prefill logits off by {max(prefill_rel)}")
-        del probe
-        streams = {s: [] for s in range(8)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(4):
-            for s, toks in server.step_burst(16).items():
-                streams[s].extend(toks)
-        decode_s = time.perf_counter() - t0
+        del probe, server
+
+        def serve(cuda_graph: bool):
+            """Phase 4's script on a fresh server: the 8 prompts, 64
+            tokens each in bursts of 16 (timed), 4 retired and 4 others
+            admitted, one more burst. Returns every call's result and
+            the 64 steps' seconds."""
+            server = DecodeServer(model, slots=8, prompt_buckets=buckets,
+                                  cuda_graph=cuda_graph)
+            firsts = [server.admit(p) for p in prompts[:8]]
+            server.step_burst(16)     # the graph's capture, then warm
+            for s in range(8):
+                server.retire(s)
+            check([server.admit(p) for p in prompts[:8]] == firsts,
+                  "re-admitted prompts give their first tokens again")
+            streams = {s: [] for s in range(8)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                for s, toks in server.step_burst(16).items():
+                    streams[s].extend(toks)
+            seconds = time.perf_counter() - t0
+            for s in range(4):
+                server.retire(s)
+            readmitted = [server.admit(p) for p in prompts[8:]]
+            return server, (firsts, streams, readmitted,
+                            server.step_burst(16)), seconds
+
+        eager_server, eager_run, eager_s = serve(cuda_graph=False)
+        del eager_server
+        torch.cuda.empty_cache()
+        server, graph_run, decode_s = serve(cuda_graph=True)
+        check(server.decode_step.graph is not None,
+              "the decode step is a CUDA graph")
+        firsts, streams, readmitted, after = graph_run
         check(all(len(streams[s]) == 64 for s in range(8)),
               "every slot decodes 64 tokens")
         check(all(0 <= t < cfg.vocab for s in streams for t in streams[s]),
               "token out of vocab")
-        for s in range(4):
-            server.retire(s)
-        readmitted = [server.admit(p)[0] for p in prompts[8:]]
-        check(sorted(readmitted) == [0, 1, 2, 3], "re-admission slots")
-        after = server.step_burst(16)
+        check(sorted(r[0] for r in readmitted) == [0, 1, 2, 3],
+              "re-admission slots")
         check(sorted(after) == list(range(8))
               and all(len(t) == 16 for t in after.values()),
               "decode after re-admission")
+        check(graph_run == eager_run,
+              "the graphed server's token streams are the eager server's")
         decode_device = device_breakdown(lambda: server.step_burst(16),
                                          16 * 1e3 * decode_s / 64)
         del server
+        torch.cuda.empty_cache()
 
         # serving.py's invariant: a slot's logits equal a solo decode with
-        # a scalar cache. Printed, not asserted: cuBLAS may pick another
-        # algorithm for an 8-row batch than for one row.
-        vec = init_kv_cache(cfg, 8, per_slot=True, device=device)
-        for slot in (0, 5):
-            _, vec = prefill_slot(model, torch.tensor([prompts[slot]],
-                                                      device=device),
-                                  vec, slot)
-        step_tok = torch.zeros(8, 1, dtype=torch.int64, device=device)
-        step_tok[5, 0] = 7
-        batched, _ = llama_apply_cached(model, step_tok, vec)
-        del vec
+        # a scalar cache, through the eager step and through the graphed
+        # one. Printed, not asserted: cuBLAS may pick another algorithm
+        # for an 8-row batch than for one row.
         solo = init_kv_cache(cfg, 1, device=device)
         _, solo = llama_apply_cached(
             model, torch.tensor([prompts[5]], device=device), solo)
         alone, _ = llama_apply_cached(
             model, torch.tensor([[7]], device=device), solo)
         del solo
-        solo_diff = (alone[0] - batched[5]).abs().max().item()
+        solo_diff = {}
+        for graphed in (False, True):
+            server = DecodeServer(model, slots=8, prompt_buckets=buckets,
+                                  cuda_graph=graphed)
+            for slot in (0, 5):
+                prefill_slot(model, torch.tensor([prompts[slot]],
+                                                 device=device),
+                             server.cache, slot)
+                server.active[slot] = True
+                server.host_len[slot] = len(prompts[slot])
+            server.last_tok[5] = 7
+            server.step()
+            key = "graph" if graphed else "eager"
+            solo_diff[key] = (alone[0, -1]
+                              - server.logits[5]).abs().max().item()
+            del server
+        readmitted = [r[0] for r in readmitted]
     emit({"phase": "serving", "slots": 8, "prompts": len(prompts),
           "prompt_lens": [len(p) for p in prompts],
           "prefill_rel_err_max": max(prefill_rel),
           "rel_tol": LOGIT_REL_TOL,
           "decode_steps": 64, "decode_ms_per_step": 1e3 * decode_s / 64,
           "decode_tokens_per_s": 8 * 64 / decode_s,
+          "eager_decode_ms_per_step": 1e3 * eager_s / 64,
+          "graph_streams_equal_eager": graph_run == eager_run,
           "decode_device_16_steps": decode_device,
           "readmitted_slots": readmitted,
-          "solo_bit_identical": solo_diff == 0.0,
+          "solo_bit_identical": {k: v == 0.0 for k, v in solo_diff.items()},
           "solo_max_abs_diff": solo_diff})
     torch.cuda.empty_cache()
 
@@ -564,6 +634,8 @@ def main() -> int:
         check(sorted(out) == [0, 1, 2, 3]
               and all(len(t) == 8 for t in out.values()),
               f"{name}: burst result {out}")
+    check(all(s.decode_step.graph is not None for s in servers.values()),
+          "each tenant's decode step is a CUDA graph")
     stats = executor.stats()
     emit({"phase": "sharing", "weights": tenants, "stats": stats})
     check(all(stats[n]["calls"] == 6 for n in tenants), "every call ran")
@@ -838,6 +910,8 @@ def main() -> int:
             check(sorted(out) == [0, 1, 2, 3]
                   and all(len(t) == 8 for t in out.values()),
                   f"server: burst result {out}")
+    check(server.decode_step.graph is not None,
+          "the server's step is a CUDA graph")
     stats = executor.stats()
     emit({"phase": "train_and_serve", "weights": tenants, "stats": stats,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1175,6 +1249,80 @@ def main() -> int:
           "device": device_breakdown(lambda: mfu_step(mfu_tokens),
                                      mfu_doc["llama_step_ms"])})
     del mfu_step, mfu_tokens
+
+    # ---- 14. the serving bench: BASELINE config 5 ----------------------
+    mark("14_serving_bench")
+    serve_docs = {}
+    for quant in (False, True):
+        doc = pod_serving.run(quant=quant,
+                              phase_seconds=POD_BENCH_CUT["serving_phase_s"],
+                              rounds=1)
+        serve_docs[doc["weights"]] = doc
+        emit({"phase": "serving_bench", **doc})
+        check(len(doc["tokens_acquired"]) == pod_serving.PODS
+              and all(n > 0 for n in doc["tokens_acquired"].values())
+              and all(math.isfinite(doc[k]) and doc[k] > 0
+                      for k in ("value", "vs_baseline", "ungated_value")),
+              f"serving bench ({doc['weights']}): {doc}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    # where a pod's decode step goes, graphed and eager: 16 steps from
+    # an empty cache, timed on the host clock, then under the profiler
+    pod_decode = pod_serving.PodDecode(
+        init_llama(pod_serving.CFG, generator=gen, device=device))
+    step_ms, breakdown = {}, {}
+    for name, fn in (("graph", pod_decode.step),
+                     ("eager", pod_decode.decode)):
+        def decode_burst(fn=fn):
+            pod_decode.restart()
+            for _ in range(16):
+                fn()
+        step_ms[name] = wall_ms(decode_burst, 3) / 16
+        breakdown[name] = device_breakdown(decode_burst, 16 * step_ms[name])
+    emit({"phase": "serving_bench_step_device", "steps": 16,
+          "bench_decode_step_ms": serve_docs["bfloat16"]["decode_step_ms"],
+          "step_ms": step_ms, "device": breakdown})
+    del pod_decode
+
+    # ---- 15. continuous batching ----------------------------------------
+    mark("15_contbatch")
+    contbatch = pod_configs.run_contbatch(
+        phase_seconds=POD_BENCH_CUT["contbatch_s"], rounds=1)
+    emit({"phase": "contbatch", **contbatch})
+    check(contbatch["admissions"] > 0
+          and contbatch["tokens_out_of_vocab"] == 0
+          and contbatch["tokens"] > contbatch["admissions"]
+          and math.isfinite(contbatch["value"]) and contbatch["value"] > 0,
+          f"contbatch: {contbatch}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 16. the LSTM gang: BASELINE config 3 ---------------------------
+    mark("16_lstm_gang")
+    gang = pod_configs.run_lstm_gang(
+        phase_seconds=POD_BENCH_CUT["gang_phase_s"], rounds=1)
+    emit({"phase": "lstm_gang", **gang})
+    check(len(gang["tokens_acquired"]) == pod_configs.GANG_PODS
+          and all(n > 0 for n in gang["tokens_acquired"].values())
+          and all(math.isfinite(x) for x in gang["final_loss"])
+          and all(math.isfinite(gang[k]) and gang[k] > 0
+                  for k in ("value", "vs_baseline", "ungated_value")),
+          f"lstm gang: {gang}")
+    # where a gang pod's step goes, graphed and eager
+    lstm_model, lstm_tokens = pod_configs.lstm_pod(0, device)
+    lstm_steps = {"graph": pod_configs.make_lstm_step(lstm_model)}
+    lstm_model, _ = pod_configs.lstm_pod(1, device)
+    lstm_steps["eager"] = make_train_step(pod_configs.lstm_loss, lstm_model,
+                                          pod_configs.LR)[1]
+    step_ms, breakdown = {}, {}
+    for name, lstm_step in lstm_steps.items():
+        step_ms[name] = wall_ms(lambda: lstm_step(lstm_tokens), 8)
+        breakdown[name] = device_breakdown(
+            lambda: lstm_step(lstm_tokens), step_ms[name])
+    emit({"phase": "lstm_gang_step_device",
+          "bench_train_step_ms": gang["train_step_ms"],
+          "step_ms": step_ms, "device": breakdown})
+    del lstm_model, lstm_tokens, lstm_steps
 
     mark("end")
     marks = list(phase_started.items())

@@ -25,7 +25,8 @@ phases a round, each ``PHASE_SECONDS`` long:
 
 The reported round is the median by gated / solo. Each pod is a thread
 with its own model, its own CUDA graph of the step
-(``make_mnist_train_step``) and its own ``torch.cuda.Stream``; a pod's
+(``make_mnist_train_step``, captured and replayed on the pod's stream)
+and its own ``torch.cuda.Stream``; a pod's
 drain waits for its own stream only (``runtime/hook.py``). Its gate
 does not fail open: a dead arbiter fails the run.
 
@@ -43,9 +44,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,6 +59,7 @@ from ..utils.device import DeviceLike, resolve_device
 from .arbiter import free_port, p99, run_threads, start_arbiter, stop_arbiter
 
 PODS = 8
+FRACTION = 0.125            # each pod's tpu-schd request
 BATCH = 1024
 HIDDEN = 256
 LR = 1e-3
@@ -79,13 +82,28 @@ def log(msg: str) -> None:
 
 @dataclass
 class Pod:
+    """One co-located pod (the serving and gang benches' pods too):
+    ``step(*inputs)`` is one step of its work; ``drain`` is the
+    completion barrier of an ungated burst (a gated burst drains through
+    its gate's own); ``rewind``, where given, runs at the start of every
+    burst (the serving pods reset their cache's length)."""
     name: str
-    step: object                 # (images, labels) -> loss
-    inputs: Tuple[torch.Tensor, torch.Tensor]
+    step: object                 # (*inputs) -> result (a loss, tokens)
+    inputs: Tuple[torch.Tensor, ...]
     stream: Optional["torch.cuda.Stream"] = None
     gate: Optional[SharedChipGate] = None
+    drain: Callable = _block
+    rewind: Optional[Callable[[], None]] = None
     latencies: List[float] = field(default_factory=list)
     bursts: List[Tuple[object, object]] = field(default_factory=list)
+
+    def burst(self, steps: int):
+        """Queue one burst of ``steps`` steps; returns the last result."""
+        if self.rewind is not None:
+            self.rewind()
+        for _ in range(steps):
+            result = self.step(*self.inputs)
+        return result
 
 
 def _on_stream(stream):
@@ -111,15 +129,14 @@ def run_stream(pod: Pod, seconds: float, stall_s: float, burst_steps: int,
                 start, end = (torch.cuda.Event(enable_timing=True)
                               for _ in range(2))
                 start.record()
-            for _ in range(burst_steps):
-                loss = pod.step(*pod.inputs)
+            result = pod.burst(burst_steps)
             if record:
                 end.record()
                 pod.bursts.append((start, end))
             if gated:
-                pod.gate.flush(loss)
+                pod.gate.flush(result)
             else:
-                _block(loss)
+                pod.drain(result)
             pod.latencies.append((time.perf_counter() - t0) / burst_steps)
             steps += burst_steps
             time.sleep(stall_s)
@@ -144,10 +161,13 @@ def _busy_share(ref, pods: Sequence[Pod], wall_s: float) -> float:
 
 
 def run_colocated(pods: Sequence[Pod], seconds: float, stall_s: float,
-                  burst_steps: int, gated: bool, batch: int) -> Dict:
-    """All pods at once, one thread each. Returns the aggregate
-    samples/s, each pod's steps, the wall time, each pod's burst
-    latencies and (on CUDA) the busy share."""
+                  burst_steps: int, gated: bool, batch: int,
+                  barrier: bool = False) -> Dict:
+    """All pods at once, one thread each (with ``barrier``, no pod starts
+    before every pod's thread is up: the gang's all-or-nothing start).
+    Returns the aggregate samples/s (``batch`` samples a step), each
+    pod's steps, the wall time, each pod's burst latencies and (on CUDA)
+    the busy share."""
     record = pods[0].stream is not None
     ref = None
     for pod in pods:
@@ -157,9 +177,12 @@ def run_colocated(pods: Sequence[Pod], seconds: float, stall_s: float,
         ref = torch.cuda.Event(enable_timing=True)
         ref.record()
     results = [0] * len(pods)
+    gang = threading.Barrier(len(pods)) if barrier else None
 
     def worker(i):
         def run():
+            if gang is not None:
+                gang.wait()
             results[i] = run_stream(pods[i], seconds, stall_s, burst_steps,
                                     gated, record)
         return run
@@ -173,13 +196,87 @@ def run_colocated(pods: Sequence[Pod], seconds: float, stall_s: float,
     }
 
 
-def _step_s(pod: Pod, steps: int) -> float:
+def step_seconds(pod: Pod, steps: int) -> float:
+    """One burst of ``steps`` steps and its drain, timed on the host
+    clock: seconds a step."""
     with _on_stream(pod.stream):
         t0 = time.perf_counter()
-        for _ in range(steps):
-            loss = pod.step(*pod.inputs)
-        _block(loss)
+        pod.drain(pod.burst(steps))
         return (time.perf_counter() - t0) / steps
+
+
+def run_rounds(team: Sequence[Pod], chip: str, fraction: float,
+               rounds: int, phase_s: float,
+               pace: Callable[[], Tuple[float, int, float]], batch: int,
+               unit: str = "samples/s", barrier: bool = False,
+               before_phase: Optional[Callable[[], None]] = None,
+               arbiter: Tuple = ()) -> Tuple[List[Dict], Dict[str, float]]:
+    """The co-location benches' measurement: ``rounds`` rounds of three
+    phases of ``phase_s`` seconds, ``team[0]`` alone (``solo``), the team
+    ungated and the team gated, each pod's gate holding tokens of a live
+    ``tpu-schd`` (``ConfigEntry(pod.name, 1.0, fraction, 0)``; the
+    arbiter's settings ``arbiter``, else ``start_arbiter``'s defaults)
+    and draining as its pod does. ``pace()``, called at the start of
+    every round, gives ``(step_s, burst_steps, stall_s)``;
+    ``before_phase`` runs before every phase; with ``barrier`` the
+    team's threads start together (``run_colocated``). Returns each
+    round (its three ``run_colocated`` results, its pace, gated / solo
+    as ``ratio`` and gated / ungated) and the arbiter's window usage per
+    pod at the end."""
+    tmpdir = tempfile.mkdtemp(prefix="ksbench-")
+    port = free_port()
+    server = start_arbiter(
+        tmpdir, chip, [ConfigEntry(p.name, 1.0, fraction, 0) for p in team],
+        port, *arbiter)
+    results = []
+    try:
+        for pod in team:
+            pod.gate = SharedChipGate(
+                TokenClient("127.0.0.1", port, pod=pod.name),
+                fail_open=False, drain=pod.drain)
+        for r in range(rounds):
+            step_s, burst_steps, stall_s = pace()
+
+            def phase(pods: Sequence[Pod], gated: bool) -> Dict:
+                if before_phase is not None:
+                    before_phase()
+                return run_colocated(pods, phase_s, stall_s, burst_steps,
+                                     gated, batch,
+                                     barrier=barrier and len(pods) > 1)
+
+            rnd = {"solo": phase(team[:1], False),
+                   "ungated": phase(team, False),
+                   "gated": phase(team, True),
+                   "step_s": step_s, "burst_steps": burst_steps,
+                   "stall_s": stall_s}
+            rate = {k: rnd[k]["samples_per_s"]
+                    for k in ("solo", "ungated", "gated")}
+            rnd["ratio"] = rate["gated"] / rate["solo"]
+            rnd["gated_vs_ungated"] = rate["gated"] / rate["ungated"]
+            results.append(rnd)
+            log(f"round {r}: solo {rate['solo']:,.0f} | ungated "
+                f"{rate['ungated']:,.0f} | gated {rate['gated']:,.0f} "
+                f"{unit} ({rnd['ratio']:.2f}x, gated/ungated "
+                f"{rnd['gated_vs_ungated']:.3f}); step "
+                f"{1e3 * step_s:.3f} ms, burst {burst_steps}")
+        with TokenClient("127.0.0.1", port, pod="probe") as client:
+            usage = {s.pod: s.window_usage_ms for s in client.stats()}
+    finally:
+        stop_arbiter(server)
+        for pod in team:
+            if pod.gate is not None:
+                pod.gate.close()
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return results, usage
+
+
+def median_round(results: Sequence[Dict]) -> Dict:
+    """The round reported: the median by gated / solo."""
+    return sorted(results, key=lambda x: x["ratio"])[len(results) // 2]
+
+
+def busy_shares(rnd: Dict) -> Dict[str, Optional[float]]:
+    return {k: rnd[k]["busy_share"] for k in ("solo", "ungated", "gated")}
 
 
 def card_line() -> str:
@@ -201,8 +298,8 @@ def eager_vs_graph_ms(cfg: MnistConfig, images: torch.Tensor,
         model = init_mnist(cfg, device=images.device)
         step = make_mnist_train_step(model, LR, cuda_graph=graph)
         pod = Pod(name, step, (images, labels))
-        _step_s(pod, 3)
-        out[name] = 1e3 * _step_s(pod, steps)
+        step_seconds(pod, 3)
+        out[name] = 1e3 * step_seconds(pod, steps)
     return out
 
 
@@ -223,106 +320,66 @@ def run_headline(pods: int = PODS, batch: int = BATCH,
             cfg, generator=torch.Generator(device=device).manual_seed(
                 seed + 1 + i), device=device)
         step = make_mnist_train_step(model, LR)
-        step(images, labels)        # on CUDA: captures the graph
-        inputs = step.inputs if cuda else (images, labels)
         stream = torch.cuda.Stream(device) if cuda else None
+        with _on_stream(stream):
+            step(images, labels)    # on CUDA: captures the graph
+        inputs = step.inputs if cuda else (images, labels)
         team.append(Pod(f"bench/pod-{i}", step, inputs, stream))
     if cuda:
         torch.cuda.synchronize(device)
 
     # calibrate the device burst: a quick estimate sizes the probe, the
-    # probe's median of 3 sets burst and stall
-    est_s = _step_s(team[0], 4)
+    # probe's median of 3, taken before every round, sets burst and stall
+    est_s = step_seconds(team[0], 4)
     chunk = max(1, min(STEPS_PER_BURST * 4, int(0.4 / max(est_s, 1e-9))))
 
-    def probe_step_s() -> float:
-        return sorted(_step_s(team[0], chunk) for _ in range(3))[1]
-
-    def calibrate(step_s: float) -> Tuple[int, float]:
+    def pace() -> Tuple[float, int, float]:
+        step_s = sorted(step_seconds(team[0], chunk) for _ in range(3))[1]
         burst_steps = max(STEPS_PER_BURST,
                           int(MIN_BURST_MS / 1e3 / step_s + 0.5))
-        return burst_steps, STALL_FACTOR * burst_steps * step_s
+        return step_s, burst_steps, STALL_FACTOR * burst_steps * step_s
 
-    tmpdir = tempfile.mkdtemp(prefix="ksheadline-")
-    port = free_port()
-    arbiter = start_arbiter(
-        tmpdir, "bench-chip",
-        [ConfigEntry(p.name, 1.0, 0.125, 0) for p in team], port,
-        QUOTA_MS, MIN_QUOTA_MS, WINDOW_MS, SLOTS)
-    try:
-        for pod in team:
-            pod.gate = SharedChipGate(
-                TokenClient("127.0.0.1", port, pod=pod.name),
-                fail_open=False)
-        results = []
-        step_s = probe_step_s()
-        for r in range(rounds):
-            burst_steps, stall_s = calibrate(step_s)
-            solo = run_colocated(team[:1], phase_s, stall_s, burst_steps,
-                                 False, batch)
-            ungated = run_colocated(team, phase_s, stall_s, burst_steps,
-                                    False, batch)
-            gated = run_colocated(team, phase_s, stall_s, burst_steps,
-                                  True, batch)
-            results.append({
-                "solo": solo["samples_per_s"],
-                "ungated": ungated["samples_per_s"],
-                "gated": gated["samples_per_s"],
-                "ratio": gated["samples_per_s"] / solo["samples_per_s"],
-                "gated_vs_ungated": (gated["samples_per_s"]
-                                     / ungated["samples_per_s"]),
-                "step_ms": 1e3 * step_s, "burst_steps": burst_steps,
-                "stall_ms": 1e3 * stall_s,
-                "busy_share": {"solo": solo["busy_share"],
-                               "ungated": ungated["busy_share"],
-                               "gated": gated["busy_share"]},
-                "gated_run": gated,
-            })
-            log(f"round {r}: solo {solo['samples_per_s']:,.0f} | ungated "
-                f"{ungated['samples_per_s']:,.0f} | gated "
-                f"{gated['samples_per_s']:,.0f} samples/s "
-                f"({results[-1]['ratio']:.2f}x); step "
-                f"{1e3 * step_s:.3f} ms, burst {burst_steps}")
-            step_s = probe_step_s()     # the next round's calibration
-        with TokenClient("127.0.0.1", port, pod="probe") as client:
-            usage = {s.pod: s.window_usage_ms for s in client.stats()}
-    finally:
-        stop_arbiter(arbiter)
-        for pod in team:
-            if pod.gate is not None:
-                pod.gate.close()
-        shutil.rmtree(tmpdir, ignore_errors=True)
+    results, usage = run_rounds(
+        team, "bench-chip", FRACTION, rounds, phase_s, pace, batch,
+        arbiter=(QUOTA_MS, MIN_QUOTA_MS, WINDOW_MS, SLOTS))
 
-    mid = sorted(results, key=lambda x: x["ratio"])[len(results) // 2]
+    rate = {k: [r[k]["samples_per_s"] for r in results]
+            for k in ("solo", "ungated", "gated")}
+    mid = median_round(results)
     worst = min(results, key=lambda x: x["gated_vs_ungated"])
-    run = mid["gated_run"]
+    run = mid["gated"]
     per_pod = [s * batch / run["elapsed"] for s in run["steps"]]
     pod_p99_ms = [1e3 * p99(lat) for lat in run["latencies"] if lat]
     doc = {
         "metric": f"aggregate samples/sec, {pods} co-located 0.5-device "
                   "MNIST pods vs whole-device allocation",
-        "value": mid["gated"],
+        "value": run["samples_per_s"],
         "unit": "samples/sec",
-        "vs_baseline": mid["gated"] / mid["solo"],
+        "vs_baseline": mid["ratio"],
         "isolated": True,
         "isolation_overhead": max(0.0, 1.0 - mid["gated_vs_ungated"]),
         "rounds": len(results),
         "worst_round_gated_vs_ungated": worst["gated_vs_ungated"],
         "phase_s": phase_s,
         "pods": pods, "batch": batch,
-        "samples_per_s": {"solo": mid["solo"], "ungated": mid["ungated"],
-                          "gated": mid["gated"]},
+        "samples_per_s": {k: mid[k]["samples_per_s"]
+                          for k in ("solo", "ungated", "gated")},
         "per_pod_samples_per_s": {"min": min(per_pod), "max": max(per_pod)},
         "per_pod_p99_step_ms": {"min": min(pod_p99_ms),
                                 "max": max(pod_p99_ms)},
         "tokens_acquired": {p.name: p.gate.tokens_acquired for p in team},
         "arbiter_window_usage_ms": usage,
-        "burst_steps": mid["burst_steps"], "stall_ms": mid["stall_ms"],
-        "step_ms": mid["step_ms"],
-        "busy_share": mid["busy_share"],
+        "burst_steps": mid["burst_steps"], "stall_ms": 1e3 * mid["stall_s"],
+        "step_ms": 1e3 * mid["step_s"],
+        "busy_share": busy_shares(mid),
         "busy_share_method": BUSY_METHOD if cuda else None,
-        "rounds_detail": [{k: v for k, v in x.items() if k != "gated_run"}
-                          for x in results],
+        "rounds_detail": [
+            {"solo": s, "ungated": u, "gated": g, "ratio": x["ratio"],
+             "gated_vs_ungated": x["gated_vs_ungated"],
+             "step_ms": 1e3 * x["step_s"], "burst_steps": x["burst_steps"],
+             "stall_ms": 1e3 * x["stall_s"], "busy_share": busy_shares(x)}
+            for s, u, g, x in zip(rate["solo"], rate["ungated"],
+                                  rate["gated"], results)],
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
     }
     if cuda:

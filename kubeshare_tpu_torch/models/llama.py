@@ -15,10 +15,11 @@ and, under autograd, backward).
 
 The KV-cache path (``llama_apply_cached`` and friends) is plain torch,
 as the reference's is plain jnp. Unlike the reference it updates the
-cache IN PLACE: the k/v buffers of the cache passed in are written and
-the same dict comes back with its new length. A cache must not be
-reused after it has been passed. Stores and masks use device index
-tensors, so a decode step does not wait on the device.
+cache IN PLACE: the k/v buffers and the length tensor of the cache
+passed in are written, and the same dict comes back. A cache must not
+be reused after it has been passed. Stores and masks use device index
+tensors, so a decode step does not wait on the device and can be
+captured as a CUDA graph.
 
 Training: ``llama_loss`` (dense, or vocab-chunked through
 ``ops.xent.chunked_linear_xent``) with ``remat`` per block; the
@@ -408,7 +409,9 @@ def llama_apply_cached(
 
     T == prompt length for prefill, T == 1 for decode; returns (float32
     logits [B, T, vocab], cache). The cache is updated IN PLACE and
-    returned. Writes are ring writes (slot = position % S), except a
+    returned: its k/v buffers and its ``length`` tensor are the same
+    tensors after the call, so a decode step captures as a CUDA graph
+    (``models/graph.py``). Writes are ring writes (slot = position % S), except a
     multi-token prefill into a full-history cache, which writes at the
     absolute positions and raises (CPU) or fails a device assert (CUDA)
     past the end, where the reference would clamp."""
@@ -485,7 +488,10 @@ def llama_apply_cached(
         x = x + _matmul(gate * up, layer.w_down, dtype)
     x = rmsnorm(model.final_norm, x)
     logits = _matmul(x, model.lm_head, dtype).float()
-    cache["length"] = start + seq
+    # in place, so that a CUDA graph of this call replays on the same
+    # tensor; ``positions`` and ``write_idx`` were taken from ``start``
+    # (the same tensor) above, before this add
+    start.add_(seq)
     return logits, cache
 
 
@@ -521,7 +527,12 @@ def _sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
     """One sampling decision over [B, vocab] logits. temperature <= 0 =
     greedy (first index on ties, like jnp.argmax); ``top_k > 0``
     restricts the draw to the k highest logits. Draws come from
-    ``generator``, so they differ from the reference's jax.random."""
+    ``generator``, so they differ from the reference's jax.random.
+
+    The draw is ``torch.multinomial``'s own one-sample method, argmax of
+    p / q with q ~ Exp(1), written out: the same numbers from the same
+    generator, without ``multinomial``'s host-side checks, which wait
+    for the device and so cannot be captured in a CUDA graph."""
     if temperature <= 0:
         return torch.argmax(logits, dim=-1)
     if top_k < 0 or top_k > logits.shape[-1]:
@@ -533,7 +544,8 @@ def _sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, _NEG_INF, logits)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / race, dim=-1)
 
 
 def llama_generate(model: Llama, prompt: torch.Tensor, steps: int,

@@ -27,6 +27,7 @@ from .common import (
     Model, conv, conv_init, cross_entropy_loss, dense, dense_init,
     init_generator, max_pool,
 )
+from .graph import GraphedStep
 
 
 @dataclass(frozen=True)
@@ -83,7 +84,9 @@ def make_mnist_train_step(model: Mnist, lr: float = 1e-3,
     in place (p - lr * g, as the reference). On a CUDA model with
     ``cuda_graph`` the first call captures the step as a CUDA graph
     (after a warm-up forward and backward that changes nothing) and
-    every call replays it on the caller's current stream. The loss it
+    every call replays it on its capture stream (``models/graph.py``:
+    the caller's stream at the first call, unless that is the default
+    stream), ordered with the caller's stream. The loss it
     returns is then the graph's output buffer, overwritten by the next
     step, and ``step.inputs`` are its input buffers: a call with them
     copies nothing."""
@@ -99,46 +102,10 @@ def make_mnist_train_step(model: Mnist, lr: float = 1e-3,
 
     if model.device.type != "cuda" or not cuda_graph:
         return eager
-    return _GraphStep(eager, model, params)
 
+    def warmup(images: torch.Tensor, labels: torch.Tensor) -> None:
+        # a forward and backward that leave the parameters untouched
+        loss = cross_entropy_loss(mnist_apply(model, images), labels)
+        torch.autograd.grad(loss, params)
 
-class _GraphStep:
-    """One captured training step of ``eager`` (see
-    ``make_mnist_train_step``)."""
-
-    def __init__(self, eager, model: Mnist, params):
-        self._eager = eager
-        self._model = model
-        self._params = params
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self.inputs = None
-        self._loss = None
-
-    def _capture(self, images: torch.Tensor, labels: torch.Tensor) -> None:
-        self.inputs = (images.clone(), labels.clone())
-        side = torch.cuda.Stream(images.device)
-        side.wait_stream(torch.cuda.current_stream(images.device))
-        with torch.cuda.stream(side):
-            # cuBLAS / cuDNN set themselves up outside the capture; the
-            # parameters are not touched
-            for _ in range(2):
-                loss = cross_entropy_loss(
-                    mnist_apply(self._model, self.inputs[0]), self.inputs[1])
-                torch.autograd.grad(loss, self._params)
-        # the warm-up's autograd graph (and its side-stream gradient
-        # accumulators) must be gone before the capture
-        del loss
-        torch.cuda.current_stream(images.device).wait_stream(side)
-        self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
-            self._loss = self._eager(*self.inputs)
-
-    def __call__(self, images: torch.Tensor,
-                 labels: torch.Tensor) -> torch.Tensor:
-        if self._graph is None:
-            self._capture(images, labels)
-        for static, given in zip(self.inputs, (images, labels)):
-            if given is not static:
-                static.copy_(given)
-        self._graph.replay()
-        return self._loss
+    return GraphedStep(eager, warmup)

@@ -16,9 +16,20 @@ Correctness invariants (tests/test_torch_serving.py):
 - a retired slot's history can never leak into the next tenant
   (length 0 re-masks every ring position).
 
+The decode step reads and writes fixed buffers: the tokens fed in
+(each step's successors are written back into them), the active mask
+and the cache, all updated in place. On a CUDA model (``cuda_graph``,
+the default) the first ``step`` captures that step as a CUDA graph
+(``models/graph.py``) and every step replays it: the counterpart of the
+reference's jitted ``_one``. The host's tokens and mask reach the
+device through a pinned staging buffer. On a CPU model, or with
+``cuda_graph=False``, the same step runs eager.
+
 ``step_burst(quantum)`` runs ``quantum`` decode steps with the tokens
 kept on the device and syncs with the host once at the end (the
-reference's one ``lax.scan`` call; CUDA graphs are a later step).
+reference's one ``lax.scan`` call). It replays the one-step graph
+``quantum`` times, each step's tokens copied into a [quantum, S]
+buffer, where the reference compiles one program per quantum.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from .graph import Replay, restoring
 from .llama import (
     Llama, _sample_token, cache_slots, init_kv_cache, llama_apply_cached,
     prefill_slot, retire_slot,
@@ -55,7 +67,10 @@ class DecodeServer:
     ``step() -> {slot: token}`` decodes every active slot one token,
     ``retire`` / auto-retire on ``eos_id`` or ``max_new`` frees slots for
     the next admission. Sampling draws from a ``torch.Generator`` seeded
-    with ``seed``."""
+    with ``seed``. ``decode_step`` is one decode step on the server's
+    fixed buffers, a CUDA graph on a CUDA model with ``cuda_graph``
+    (module docstring); ``logits`` holds the last step's float32 logits
+    [S, vocab]."""
 
     def __init__(
         self,
@@ -67,6 +82,7 @@ class DecodeServer:
         eos_id: Optional[int] = None,
         max_new: int = 0,
         seed: int = 0,
+        cuda_graph: bool = True,
     ):
         cfg = model.cfg
         # a bucket must fit BOTH the context horizon (one generated
@@ -98,25 +114,64 @@ class DecodeServer:
         # host-initiated (admit: true_len; step: +1 per active slot;
         # retire: 0), so stop rules never wait on the device
         self.host_len: List[int] = [0] * slots
+        # the decode step's fixed inputs, and their host staging
+        self._tokens = torch.zeros(slots, dtype=torch.int64,
+                                   device=self.device)
+        self._active = torch.zeros(slots, dtype=torch.bool,
+                                   device=self.device)
+        cuda = self.device.type == "cuda"
+        self._staged = tuple(
+            torch.zeros(slots, dtype=t.dtype, pin_memory=cuda)
+            for t in (self._tokens, self._active))
+        # the warm-up's K/V writes land at each lane's length, where the
+        # first replay writes before anything reads them; it draws from
+        # a generator of its own
+        decode, generator = self._decoder(), self.generator
+        self.decode_step = Replay(
+            lambda: decode(generator),
+            restoring(lambda: decode(torch.Generator(
+                device=model.device).manual_seed(0)),
+                [self.cache["length"], self._tokens]),
+            [generator] if temperature > 0 else [],
+            graphed=cuda and cuda_graph)
 
-    def _decode(self, tokens: torch.Tensor,
-                active: torch.Tensor) -> torch.Tensor:
-        """One decode step on device tensors: [S] tokens in, [S] out."""
-        logits, self.cache = llama_apply_cached(
-            self.model, tokens[:, None], self.cache)
-        nxt = _sample_token(logits[:, -1], self.generator, self.temperature,
-                            self.top_k)
-        # an idle lane must stay idle: its length snaps back to 0 so its
-        # garbage write never becomes visible history
-        self.cache["length"] = torch.where(active, self.cache["length"], 0)
-        return torch.where(active, nxt, 0)
+    @property
+    def logits(self) -> Optional[torch.Tensor]:
+        """The last decode step's float32 logits [S, vocab]."""
+        return self.decode_step.output
 
-    def _device_inputs(self):
-        tokens = torch.tensor(self.last_tok, dtype=torch.int64,
-                              device=self.device)
-        active = torch.tensor(self.active, dtype=torch.bool,
-                              device=self.device)
-        return tokens, active
+    def _decoder(self):
+        """``decode(generator)``: one decode step on the fixed buffers.
+        It feeds ``_tokens``, writes each active lane's successor back
+        into them (idle lanes 0) and returns the step's [S, vocab]
+        logits. It holds the buffers, not the server, so that the
+        server is freed as soon as it is dropped."""
+        model, cache, tokens, active = (self.model, self.cache,
+                                        self._tokens, self._active)
+        temperature, top_k = self.temperature, self.top_k
+
+        def decode(generator: torch.Generator) -> torch.Tensor:
+            logits, _ = llama_apply_cached(model, tokens[:, None], cache)
+            logits = logits[:, -1]
+            nxt = _sample_token(logits, generator, temperature, top_k)
+            # an idle lane must stay idle: its length snaps back to 0 so
+            # its garbage write never becomes visible history
+            cache["length"].masked_fill_(~active, 0)
+            tokens.copy_(torch.where(active, nxt, 0))
+            return logits
+
+        return decode
+
+    def _load_inputs(self) -> None:
+        """The host's last tokens and active mask into the step's input
+        buffers. The staging buffers are pinned on a CUDA model, so the
+        copies do not wait; every step ends in a host sync before the
+        staging is written again."""
+        for staged, host, dev in zip(self._staged,
+                                     (self.last_tok, self.active),
+                                     (self._tokens, self._active)):
+            staged.copy_(torch.tensor(host, dtype=staged.dtype))
+            dev.copy_(staged, non_blocking=True)
 
     # ---- admission / retirement ---------------------------------
 
@@ -192,7 +247,9 @@ class DecodeServer:
         the cache horizon (the eos token itself is reported)."""
         if not any(self.active):
             return {}
-        nxt = self._decode(*self._device_inputs()).tolist()
+        self._load_inputs()
+        self.decode_step()
+        nxt = self._tokens.tolist()
         out: Dict[int, int] = {}
         for s in range(self.slots):
             if not self.active[s]:
@@ -230,12 +287,13 @@ class DecodeServer:
                 if not any(self.active):
                     break
             return out
-        tokens, active = self._device_inputs()
-        seq = []
-        for _ in range(quantum):
-            tokens = self._decode(tokens, active)
-            seq.append(tokens)
-        seq = torch.stack(seq).tolist()  # [quantum, S]: the one host sync
+        self._load_inputs()
+        seq = torch.empty(quantum, self.slots, dtype=torch.int64,
+                          device=self.device)
+        for i in range(quantum):
+            self.decode_step()
+            seq[i].copy_(self._tokens)
+        seq = seq.tolist()  # [quantum, S]: the one host sync
         out = {}
         for s in range(self.slots):
             if not self.active[s]:

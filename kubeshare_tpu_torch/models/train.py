@@ -16,6 +16,8 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from .graph import GraphedStep
+
 
 def accumulated_value_and_grad(loss_fn: Callable, accum_steps: int):
     """``(model, batch) -> (loss, grads)``: the loss ``loss_fn(model,
@@ -67,16 +69,27 @@ def check_accum_batch(batch: Sequence[torch.Tensor], accum_steps: int) -> None:
 def make_train_step(loss_fn: Callable, model: nn.Module,
                     learning_rate: float = 1e-3,
                     optimizer: Optional[torch.optim.Optimizer] = None,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, cuda_graph: bool = False):
     """``(optimizer, step)``: ``step(*batch)`` computes
     ``loss_fn(model, *batch)`` and its gradients (see
     ``accumulated_value_and_grad``), applies one optimizer update to the
     model IN PLACE, and returns the loss (a device scalar, not synced).
     The default optimizer is Adam over the model's trainable
-    parameters."""
+    parameters.
+
+    On a CUDA model with ``cuda_graph`` the whole step (forward,
+    backward and the update) is captured at the first call as a CUDA
+    graph (``models/graph.py``) and replayed at every call, as
+    ``make_mnist_train_step`` does. The optimizer must then be an Adam
+    with ``capturable=True`` (the default one is); its state is created
+    before the capture, so the first replay is the first update. The
+    loss returned is the graph's output buffer, rewritten by the next
+    step, and ``step.inputs`` are its input buffers."""
     params = [p for p in model.parameters() if p.requires_grad]
+    graphed = cuda_graph and params[0].is_cuda
     opt = optimizer or torch.optim.Adam(params, lr=learning_rate,
-                                        betas=(0.9, 0.999), eps=1e-8)
+                                        betas=(0.9, 0.999), eps=1e-8,
+                                        capturable=graphed)
     vg = accumulated_value_and_grad(loss_fn, accum_steps)
 
     def step(*batch):
@@ -89,7 +102,38 @@ def make_train_step(loss_fn: Callable, model: nn.Module,
             p.grad = None
         return loss
 
-    return opt, step
+    if not graphed:
+        return opt, step
+    if not all(group.get("capturable") for group in opt.param_groups):
+        raise ValueError("a graphed step needs Adam(capturable=True)")
+    init_adam_state(opt)
+
+    def warmup(*batch):
+        # a forward and backward that leave the parameters untouched
+        vg(model, batch)
+
+    return opt, GraphedStep(step, warmup)
+
+
+def init_adam_state(opt: torch.optim.Optimizer) -> None:
+    """Create the state an Adam builds at its first update (``step``,
+    ``exp_avg``, ``exp_avg_sq`` and, with amsgrad, ``max_exp_avg_sq``, as
+    ``torch.optim.Adam._init_group`` makes them with ``capturable``), so
+    that a captured update finds it and allocates nothing. The next
+    update then does what the first update of a fresh Adam does."""
+    if not isinstance(opt, torch.optim.Adam):
+        raise ValueError(f"expected an Adam, got {type(opt).__name__}")
+    for group in opt.param_groups:
+        for p in group["params"]:
+            state = opt.state[p]
+            if state:
+                continue
+            state["step"] = torch.zeros((), dtype=torch.float32,
+                                        device=p.device)
+            for name in ("exp_avg", "exp_avg_sq") + (
+                    ("max_exp_avg_sq",) if group["amsgrad"] else ()):
+                state[name] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
 
 
 def synthetic_batches(generator: torch.Generator, shape: Sequence[int],

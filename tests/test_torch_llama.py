@@ -322,6 +322,28 @@ class TestCache:
         assert tllama.init_kv_cache(cfg, 3, device="cpu")["length"].dim() == 0
 
 
+    def test_length_is_written_in_place(self):
+        """A CUDA graph of a decode step replays fixed addresses: the
+        cache's length is the same tensor after llama_apply_cached
+        (scalar and per-slot), prefill_slot and retire_slot."""
+        model = port_model()
+        cfg = port_cfg(JCFG)
+        scalar = tllama.init_kv_cache(cfg, 2, device="cpu")
+        length = scalar["length"]
+        for t in (tokens(40, 2, 5), tokens(41, 2, 1)):
+            _, scalar = tllama.llama_apply_cached(model, torch.from_numpy(t),
+                                                  scalar)
+        assert scalar["length"] is length and int(length) == 6
+        vec = tllama.init_kv_cache(cfg, 2, per_slot=True, device="cpu")
+        length = vec["length"]
+        _, vec = tllama.prefill_slot(model, torch.from_numpy(
+            tokens(42, 1, 7)), vec, 1)
+        _, vec = tllama.llama_apply_cached(model, torch.from_numpy(
+            tokens(43, 2, 1)), vec)
+        vec = tllama.retire_slot(vec, 0)
+        assert vec["length"] is length and length.tolist() == [0, 8]
+
+
 class TestGenerate:
     @pytest.mark.parametrize("window", [0, 8])
     def test_greedy_matches(self, window):
@@ -359,6 +381,17 @@ class TestGenerate:
                                             None, 0.0, 3)))
         with pytest.raises(ValueError, match="top_k"):
             tllama._sample_token(logits, gen, 1.0, 51)
+        # the draw is torch.multinomial's own, written out so that a CUDA
+        # graph can capture it: the same tokens from the same generator
+        for top_k in (0, 5):
+            ours, theirs = (torch.Generator().manual_seed(4) for _ in "ab")
+            kth = torch.topk(logits, top_k or 50, dim=-1).values[..., -1:]
+            probs = torch.softmax(torch.where(logits / 0.7 < kth / 0.7,
+                                              -1e30, logits / 0.7), dim=-1)
+            for _ in range(20):
+                np.testing.assert_array_equal(
+                    tllama._sample_token(logits, ours, 0.7, top_k).numpy(),
+                    torch.multinomial(probs, 1, generator=theirs)[:, 0])
         sampled = tllama.llama_generate(
             port_model(), torch.from_numpy(tokens(33, 2, 5)), 6,
             temperature=0.8, top_k=5)

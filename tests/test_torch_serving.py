@@ -5,6 +5,8 @@ kubeshare_tpu/models/serving.py held inside the port, mirroring
 tests/test_serving_slots.py."""
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import numpy as np
@@ -209,6 +211,54 @@ class TestServer:
         server.cache["length"][0] = 60
         out = server.step_burst(8)
         assert len(out[0]) == 4 and server.active == [False, False]
+
+    def test_step_writes_the_cache_in_place(self):
+        """step, step_burst, admit and retire write the cache's tensors
+        in place: a CUDA graph of the decode step replays on them."""
+        server = DecodeServer(MODEL, slots=3, prompt_buckets=BUCKETS)
+        cache = dict(server.cache)
+        server.admit([5, 9, 13])
+        server.admit([21, 3])
+        server.step()
+        server.step_burst(3)
+        server.retire(0)
+        assert all(server.cache[k] is cache[k] for k in cache)
+        assert server.cache["length"].tolist() == [0, 6, 0]
+        assert server.host_len == server.cache["length"].tolist()
+
+    def test_warmup_leaves_no_trace(self):
+        """A graphed server warms its step up on the state the capture
+        sees and restores that state (``models/graph.py::restoring``):
+        the step after the warm-up gives what it gives without one."""
+        servers = [DecodeServer(MODEL, slots=3, prompt_buckets=BUCKETS)
+                   for _ in range(2)]
+        for server in servers:
+            server.admit([5, 9, 13])
+            server.admit([21, 3, 7, 2])
+            server.step()
+            server._load_inputs()
+        servers[0].decode_step._warmup()   # what runs before a capture
+        for server in servers:
+            server.decode_step()
+        torch.testing.assert_close(servers[0].logits, servers[1].logits,
+                                   rtol=0, atol=0)
+        assert servers[0]._tokens.tolist() == servers[1]._tokens.tolist()
+        for key in ("k", "v", "length"):
+            assert torch.equal(servers[0].cache[key], servers[1].cache[key])
+
+    def test_server_is_freed_when_dropped(self):
+        """No reference cycle keeps a dropped server (and its cache)
+        alive until the garbage collector runs."""
+        server = DecodeServer(MODEL, slots=2, prompt_buckets=BUCKETS)
+        server.admit([5, 9, 13])
+        server.step_burst(2)
+        ref = weakref.ref(server)
+        gc.disable()
+        try:
+            del server
+            assert ref() is None
+        finally:
+            gc.enable()
 
     def test_sampling_server(self):
         server = DecodeServer(MODEL, slots=2, prompt_buckets=BUCKETS,

@@ -223,3 +223,29 @@ def test_init_llama_trainable_and_synthetic_batches():
     floats = next(ttrain.synthetic_batches(torch.Generator().manual_seed(7),
                                            (4, 3)))
     assert floats.dtype == torch.float32 and floats.shape == (4, 3)
+
+
+def test_adam_state_made_before_the_first_update_keeps_it():
+    """A graphed step creates Adam's state before its capture
+    (``init_adam_state``): the update after it is a fresh Adam's first,
+    bit for bit, and the next ones follow as they would."""
+    cfg = dataclasses.replace(tllama.LlamaConfig(**dataclasses.asdict(JCFG)),
+                              dtype="float32")
+    batch = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 9)))
+    models = [tllama.init_llama(cfg, device="cpu", trainable=True)
+              for _ in range(2)]
+    opts = [torch.optim.Adam(m.parameters(), lr=1e-3) for m in models]
+    ttrain.init_adam_state(opts[1])
+    assert all(state["step"] == 0 for state in opts[1].state.values())
+    for model, opt in zip(models, opts):
+        _, step = ttrain.make_train_step(tllama.llama_loss, model,
+                                         optimizer=opt, cuda_graph=True)
+        assert not hasattr(step, "inputs")     # no CUDA graph on the CPU
+        for _ in range(2):
+            step(batch)
+    for a, b in zip(*(m.parameters() for m in models)):
+        assert torch.equal(a, b)
+    assert all(state["step"] == 2 for state in opts[1].state.values())
+    with pytest.raises(ValueError, match="Adam"):
+        ttrain.init_adam_state(torch.optim.SGD(models[0].parameters(), 0.1))
