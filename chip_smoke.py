@@ -66,10 +66,24 @@ nonzero and prints no result:
     training pods behind one barrier under ``tpu-schd``), one round of
     shorter phases; every pod must acquire tokens, the losses finite.
     Where a pod's step goes, graphed and eager.
+17. node: the node side of a shared card (``bench/node.py``). The CUDA
+    interposer built with g++, and once more against the real
+    ``<cuda.h>`` (its ``static_assert``s); the NVML inventory (row 0's
+    uuid is torch's, its memory NVML's total and within 1 % of torch's,
+    the collector's ``/metrics`` scraped back); then ``NodeConfigDaemon``
+    -> ``NodeLauncher`` (``tpu-schd`` + a ``tpu-pmgr`` per pod) -> two
+    unmodified PyTorch pods under the interposer (Llama head dim 32
+    eager, the MNIST graph): both must acquire tokens and be charged
+    memory, ``pod-b`` must get ``torch.cuda.OutOfMemoryError`` past its
+    6 GiB cap and carry on, the interposer must count the flash kernels
+    (>= 4 launches) and ``cuGraphLaunch``, and the launcher's ``/metrics``
+    must show both pods. Then one pod alone without the interposer, under
+    it passing through, and gated: step ms, printed, not enforced.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device, and
-g++ for ``tpu-schd`` (``bench/arbiter.py`` builds it when missing).
+g++ for ``tpu-schd``, ``tpu-pmgr`` and the interposer (each is built
+when missing).
 """
 
 from __future__ import annotations
@@ -1323,6 +1337,123 @@ def main() -> int:
           "bench_train_step_ms": gang["train_step_ms"],
           "step_ms": step_ms, "device": breakdown})
     del lstm_model, lstm_tokens, lstm_steps
+
+    # ---- 17. the node side: inventory, deployed pods, the interposer ----
+    mark("17_node")
+    from kubeshare_tpu_torch.bench import node as node_bench
+    from kubeshare_tpu_torch.metrics.collector import (
+        Collector, NvmlChipBackend,
+    )
+    from kubeshare_tpu_torch.metrics.scrape import scrape_capacity
+    from kubeshare_tpu_torch.runtime.native import build_interposer
+
+    # the interposer, and again against the real cuda.h (static_asserts)
+    with ThreadPoolExecutor(2) as pool:
+        shim_paths = [str(p) for p in pool.map(build_interposer,
+                                               (False, True))]
+    backend = NvmlChipBackend()
+    chips = backend.enumerate()
+    mig_mode = backend.mig_mode(0)
+    check(len(chips) >= 1, "NVML enumerates no device")
+    row = chips[0]
+    props = torch.cuda.get_device_properties(0)
+    torch_uuid = str(props.uuid)
+    if not torch_uuid.startswith("GPU-"):
+        torch_uuid = "GPU-" + torch_uuid
+    smi_mib = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total", "--format=csv,noheader,"
+         "nounits", "-i", "0"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    collector = Collector("smoke-node", backend)
+    server = collector.serve(host="127.0.0.1", port=0)
+    try:
+        scraped = scrape_capacity(f"http://127.0.0.1:{server.port}/metrics")
+    finally:
+        server.stop()
+    backend.close()
+    emit({"phase": "node_inventory", "card": smi, "row": vars(row),
+          "rows": len(chips), "mig_mode": mig_mode, "torch_uuid": torch_uuid,
+          "torch_total_memory": props.total_memory,
+          "nvidia_smi_memory_mib": smi_mib, "interposer": shim_paths})
+    check(row.uuid == torch_uuid,
+          f"NVML uuid {row.uuid} is not torch's {torch_uuid}")
+    check(row.memory >> 20 == smi_mib
+          and abs(row.memory - props.total_memory) <= 0.01 * row.memory,
+          f"memory {row.memory}: NVML {smi_mib} MiB, torch "
+          f"{props.total_memory}")
+    check(scraped.get("smoke-node") == chips,
+          f"the collector's /metrics gave {scraped}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    node = node_bench.run_node(row.uuid, seconds=0.75,
+                               cost_modes=("plain", "interposer"))
+
+    def shim_summary(stats):
+        out = {k: v for k, v in stats.items() if k != "functions"}
+        out["functions"] = len(stats["functions"])
+        out["flash"] = sum(n for name, n in stats["functions"].items()
+                           if "flash" in name)
+        return out
+
+    pods = node["pods"]
+    emit({"phase": "node_pods", "card": smi, "synced": node["synced"],
+          "seconds": node["colocated_s"], "arbiter": node["arbiter_peak"],
+          "metrics": node["metrics_peak"],
+          **{name: {"llama": pod["llama"], "mnist": pod["mnist"],
+                    "alloc": pod["alloc"],
+                    "interposer": shim_summary(pod["interposer"])}
+             for name, pod in pods.items()}})
+    check(node["synced"] == {row.uuid: 2},
+          f"nodeconfig wrote {node['synced']}")
+    for name, pod in pods.items():
+        stats, peak = pod["interposer"], node["arbiter_peak"][f"smoke/{name}"]
+        check(stats is not None and stats["mode"] == "gated"
+              and stats["acquires"] > 0 and stats["releases"] > 0,
+              f"{name} was not gated: {stats}")
+        check(peak["window_usage_ms"] > 0 and peak["mem_used"] > 0,
+              f"{name} was not charged by the arbiter: {peak}")
+        check(stats["launch"] + stats["launch_ex"] > 0
+              and stats["graph_launch"] > 0,
+              f"{name}: no gated kernel or graph launch: {stats}")
+        check(shim_summary(stats)["flash"] >= 4,
+              f"{name}: the interposer saw no flash kernel: "
+              f"{shim_summary(stats)}")
+        check(math.isfinite(pod["llama"]["loss"])
+              and math.isfinite(pod["mnist"]["loss"])
+              and math.isfinite(pod["alloc"]["step_after"]),
+              f"{name}: losses {pod['llama']}, {pod['mnist']}, "
+              f"{pod['alloc']}")
+        check(node["metrics_peak"].get(
+                  f"tpu_pod_window_usage_ms/smoke/{name}", 0) > 0,
+              f"the launcher's /metrics lacks {name}: {node['metrics_peak']}")
+    check(pods["pod-a"]["alloc"]["outcome"] == "ok",
+          f"pod-a's uncapped allocation: {pods['pod-a']['alloc']}")
+    check(pods["pod-b"]["alloc"]["outcome"].startswith("oom")
+          and pods["pod-b"]["interposer"]["mem_denied"] >= 1,
+          f"pod-b past its cap: {pods['pod-b']['alloc']}")
+    peak_b = node["arbiter_peak"]["smoke/pod-b"]
+    check(peak_b["mem_used"] <= node_bench.POD_B_CAP,
+          f"pod-b charged past its cap: {peak_b}")
+    check(node["metrics_peak"].get("tpu_chip_arbiter_up") == 1.0,
+          f"the launcher's /metrics: {node['metrics_peak']}")
+    cost = {mode: [{"llama_step_ms": run["llama_step_ms"],
+                    "mnist_graph_step_ms": run["mnist_graph_step_ms"],
+                    "launch_us": run["launch_us"],
+                    **({"acquire_wait_ms": run["interposer"]["acquire_wait_ms"],
+                        "drain_wait_ms": run["interposer"]["drain_wait_ms"],
+                        "launches": run["interposer"]["launch"]
+                        + run["interposer"]["launch_ex"],
+                        "graph_launches": run["interposer"]["graph_launch"]}
+                       if mode == "interposer" else {})}
+                   for run in runs]
+            for mode, runs in node["cost"].items()}
+    emit({"phase": "node_cost", "card": smi, "pod": "smoke/pod-a alone",
+          "limit": 1.0, "window_ms": node["window_ms"], **cost,
+          "colocated_steps_per_s": {
+              name: {"llama": 1e3 / pod["llama"]["step_ms"],
+                     "mnist": 1e3 / pod["mnist"]["step_ms"]}
+              for name, pod in pods.items()}})
 
     mark("end")
     marks = list(phase_started.items())

@@ -1,13 +1,16 @@
-"""A live ``tpu-schd`` token arbiter for benchmarks, and their thread
-fan-out (copies of ``start_arbiter``, ``stop_arbiter``, ``run_threads``
-and ``p99`` from ``bench_common.py``).
+"""A live ``tpu-schd`` token arbiter and ``tpu-pmgr`` pod managers for
+benchmarks, and their thread fan-out (copies of ``start_arbiter``,
+``stop_arbiter``, ``run_threads`` and ``p99`` from ``bench_common.py``).
 
 The arbiter is the native isolation runtime's per-device scheduler
-(``runtime_native/tpu_schd.cc``). When its binary is missing it is
-built with ``make -C runtime_native build/tpu-schd`` (g++ only). Where
-``bench_common.start_arbiter`` returns None when the arbiter cannot
-start, this copy raises: a gated benchmark without its arbiter is not
-the benchmark.
+(``runtime_native/tpu_schd.cc``), a pod manager its per-pod bridge
+(``tpu_pmgr.cc``), which pins the pod's identity on every command it
+forwards: a bench or a pod can then run pod -> ``tpu-pmgr`` ->
+``tpu-schd`` as a node deploys them. A binary that is missing is built
+with ``make -C runtime_native build/<name>`` (g++ only;
+``runtime/native.py::build_binary``). Where ``bench_common.start_arbiter``
+returns None when the arbiter cannot start, this copy raises: a gated
+benchmark without its arbiter is not the benchmark.
 """
 
 from __future__ import annotations
@@ -21,21 +24,9 @@ from typing import Callable, List, Sequence
 
 from ..nodeconfig.files import ConfigEntry, write_config_file
 from ..runtime.client import TokenClient
+from ..runtime.native import NATIVE_BUILD, build_binary
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-NATIVE = os.path.join(REPO, "runtime_native")
-SCHD = os.path.join(NATIVE, "build", "tpu-schd")
-
-
-def build_schd() -> str:
-    """The path of ``tpu-schd``, built first if it is missing."""
-    if not os.path.exists(SCHD):
-        out = subprocess.run(["make", "-C", NATIVE, "build/tpu-schd"],
-                             capture_output=True, text=True)
-        if out.returncode != 0 or not os.path.exists(SCHD):
-            raise RuntimeError(f"building {SCHD} failed:\n{out.stderr}")
-    return SCHD
+SCHD = str(NATIVE_BUILD / "tpu-schd")
 
 
 def free_port() -> int:
@@ -56,7 +47,7 @@ def start_arbiter(
 ) -> subprocess.Popen:
     """Spawn a real tpu-schd on ``port`` over a fresh config file and
     return the process once it answers; raise if it does not."""
-    schd = build_schd()
+    schd = SCHD if os.path.exists(SCHD) else build_binary("tpu-schd")
     write_config_file(tmpdir, chip, list(entries))
     proc = subprocess.Popen(
         [schd, "-p", os.path.join(tmpdir, "config"), "-f", chip,
@@ -64,6 +55,24 @@ def start_arbiter(
          "-w", str(window_ms), "-c", str(slots), "-H", "127.0.0.1"],
         stderr=subprocess.DEVNULL,
     )
+    return _answering(proc, "tpu-schd", port)
+
+
+def start_pod_manager(pod: str, port: int, arbiter_port: int,
+                      host: str = "127.0.0.1") -> subprocess.Popen:
+    """Spawn a real tpu-pmgr for ``pod`` on ``port``, forwarding to the
+    arbiter on ``arbiter_port``, and return it once it answers; raise if
+    it does not."""
+    pmgr = build_binary("tpu-pmgr")
+    env = dict(os.environ, SCHEDULER_IP="127.0.0.1",
+               SCHEDULER_PORT=str(arbiter_port), POD_MANAGER_IP=host,
+               POD_MANAGER_PORT=str(port), POD_NAME=pod)
+    proc = subprocess.Popen([pmgr], env=env, stderr=subprocess.DEVNULL)
+    return _answering(proc, "tpu-pmgr", port)
+
+
+def _answering(proc: subprocess.Popen, name: str, port: int
+               ) -> subprocess.Popen:
     for _ in range(100):
         try:
             TokenClient("127.0.0.1", port, pod="probe").close()
@@ -73,7 +82,7 @@ def start_arbiter(
                 break
             time.sleep(0.05)
     stop_arbiter(proc)
-    raise RuntimeError(f"tpu-schd did not answer on port {port} "
+    raise RuntimeError(f"{name} did not answer on port {port} "
                        f"(exit code {proc.returncode})")
 
 

@@ -5,10 +5,8 @@ from __future__ import annotations
 
 import argparse
 
+from ..constants import LOG_DIR
 from ..utils.logger import get_logger
-
-# the node's log directory (kubeshare_tpu/scheduler/constants.py LOG_DIR)
-LOG_DIR = "/kubeshare/log"
 
 
 def add_common_flags(parser: argparse.ArgumentParser) -> None:

@@ -1,17 +1,24 @@
-"""Token-protocol client (a copy of ``TokenClient`` from
-``kubeshare_tpu/runtime/client.py``: pure Python, so the port keeps its
-own rather than importing the JAX package).
+"""Token-protocol clients (copies of ``TokenClient``,
+``load_native_library`` and ``NativeTokenClient`` from
+``kubeshare_tpu/runtime/client.py``: the port keeps its own rather than
+importing the JAX package).
 
-Speaks the ACQ/REL/MEM/STAT line protocol to a ``tpu-pmgr`` (in-pod)
-or directly to a ``tpu-schd`` (tests, node-local tools).
+``TokenClient`` is pure Python; ``NativeTokenClient`` binds the native
+runtime's ``libtpuhook.so`` with ``ctypes`` (built with ``make -C
+runtime_native build/libtpuhook.so`` when it is missing). Both speak
+the ACQ/REL/MEM/STAT line protocol to a ``tpu-pmgr`` (in-pod) or
+directly to a ``tpu-schd`` (tests, node-local tools).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import socket
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
+
+from ..constants import ENV_POD_NAME, LIBRARY_PATH
 
 
 class TokenProtocolError(RuntimeError):
@@ -30,7 +37,7 @@ class TokenClient:
     """One TCP connection speaking the ACQ/REL/MEM/STAT line protocol."""
 
     def __init__(self, host: str, port: int, pod: str = "", timeout: float = 30.0):
-        self.pod = pod or os.environ.get("KUBESHARE_POD_NAME", "-") or "-"
+        self.pod = pod or os.environ.get(ENV_POD_NAME, "-") or "-"
         self._sock = socket.create_connection((host, port), timeout=timeout)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._file = self._sock.makefile("rw", newline="\n")
@@ -96,3 +103,72 @@ class TokenClient:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def load_native_library(path: Optional[str] = None) -> ctypes.CDLL:
+    """``libtpuhook.so``: ``path``, else the in-repo build (made first
+    if it is missing), else the node's library directory."""
+    if path:
+        candidates = [path]
+    else:
+        from .native import build_binary
+
+        try:
+            candidates = [build_binary("libtpuhook.so")]
+        except RuntimeError:
+            candidates = []
+        candidates.append(os.path.join(LIBRARY_PATH, "libtpuhook.so"))
+    last_error: Optional[Exception] = None
+    for candidate in candidates:
+        if candidate and os.path.exists(candidate):
+            try:
+                lib = ctypes.CDLL(os.path.abspath(candidate))
+            except OSError as e:
+                last_error = e
+                continue
+            lib.tpuhook_connect.restype = ctypes.c_void_p
+            lib.tpuhook_connect.argtypes = [ctypes.c_char_p, ctypes.c_int]
+            lib.tpuhook_acquire.restype = ctypes.c_double
+            lib.tpuhook_acquire.argtypes = [ctypes.c_void_p, ctypes.c_double]
+            lib.tpuhook_release.restype = ctypes.c_int
+            lib.tpuhook_release.argtypes = [ctypes.c_void_p, ctypes.c_double]
+            lib.tpuhook_mem.restype = ctypes.c_int
+            lib.tpuhook_mem.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+            lib.tpuhook_close.restype = None
+            lib.tpuhook_close.argtypes = [ctypes.c_void_p]
+            return lib
+    raise FileNotFoundError(
+        f"libtpuhook.so not found in {candidates}: {last_error}"
+    )
+
+
+class NativeTokenClient:
+    """ctypes wrapper over libtpuhook.so (the surface of TokenClient
+    without ``stats``; ``request_memory`` reports only the verdict)."""
+
+    def __init__(self, host: str, port: int, lib_path: Optional[str] = None):
+        self._lib = load_native_library(lib_path)
+        self._handle = self._lib.tpuhook_connect(host.encode(), port)
+        if not self._handle:
+            raise ConnectionError(f"libtpuhook: cannot connect to {host}:{port}")
+
+    def acquire(self, est_ms: float = 0.0) -> float:
+        quota = self._lib.tpuhook_acquire(self._handle, est_ms)
+        if quota < 0:
+            raise TokenProtocolError("native acquire failed")
+        return quota
+
+    def release(self, used_ms: float) -> None:
+        if self._lib.tpuhook_release(self._handle, used_ms) != 0:
+            raise TokenProtocolError("native release failed")
+
+    def request_memory(self, delta_bytes: int) -> Tuple[bool, int, int]:
+        result = self._lib.tpuhook_mem(self._handle, delta_bytes)
+        if result < 0:
+            raise TokenProtocolError("native mem call failed")
+        return bool(result), 0, 0
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.tpuhook_close(self._handle)
+            self._handle = None

@@ -33,11 +33,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..constants import ENV_HBM_LIMIT, ENV_POD_MANAGER_PORT
 from .client import TokenClient, TokenProtocolError
-
-# the scheduler's env contract (kubeshare_tpu/scheduler/constants.py)
-ENV_POD_MANAGER_PORT = "KUBESHARE_POD_MANAGER_PORT"
-ENV_HBM_LIMIT = "KUBESHARE_HBM_LIMIT_BYTES"
 
 
 class HbmCapExceeded(MemoryError):

@@ -1,0 +1,109 @@
+"""Build the node side's native pieces at first use.
+
+- ``build_binary(name)``: ``tpu-schd``, ``tpu-pmgr`` or
+  ``libtpuhook.so`` of the native isolation runtime, built with
+  ``make -C runtime_native build/<name>`` (g++ only) when
+  ``runtime_native/build/`` lacks it. Concurrent callers (several test
+  processes, a launcher and a bench) take a file lock around the build,
+  so none runs a half-written binary.
+- ``build_interposer(check_cuda_h=False)``: the CUDA driver-API
+  interposer, ``csrc/cuda_interposer.cc`` (with its hand-declared driver
+  types, ``csrc/cuda_decls.h``), built with g++ (it has no
+  device code and links no ``libcuda``) beside the port's kernels in
+  ``build/torch_kernels/``, named by a hash of its source and flags as
+  ``ops/_build.py`` names a kernel library (source, header and flags). ``check_cuda_h`` builds it
+  once more against the real ``<cuda.h>`` (``-DKUBESHARE_CHECK_CUDA_H``),
+  whose ``static_assert``s fail the build on a prototype that disagrees
+  with the driver's; it needs the CUDA toolkit's headers.
+
+Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+from ..ops._build import BUILD_DIR
+
+REPO = Path(__file__).resolve().parents[2]
+NATIVE_DIR = REPO / "runtime_native"
+NATIVE_BUILD = NATIVE_DIR / "build"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+GXX_FLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread",
+             "-shared")
+# where the CUDA toolkit's headers are looked for by check_cuda_h
+CUDA_INCLUDE = ("/usr/local/cuda/include",)
+
+
+def build_binary(name: str) -> str:
+    """The path of ``runtime_native/build/<name>``, built first if it is
+    missing; raises if the build fails."""
+    path = NATIVE_BUILD / name
+    if path.exists():
+        return str(path)
+    NATIVE_BUILD.mkdir(parents=True, exist_ok=True)
+    with open(NATIVE_BUILD / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            out = subprocess.run(["make", "-C", str(NATIVE_DIR),
+                                  f"build/{name}"],
+                                 capture_output=True, text=True)
+            if out.returncode != 0 or not path.exists():
+                raise RuntimeError(
+                    f"building {path} failed ({out.returncode}):\n"
+                    f"{out.stdout}{out.stderr}")
+    return str(path)
+
+
+def _cuda_include() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "include"))
+    candidates.extend(CUDA_INCLUDE)
+    for directory in candidates:
+        if os.path.isfile(os.path.join(directory, "cuda.h")):
+            return directory
+    raise RuntimeError(f"cuda.h not found in {candidates}")
+
+
+def interposer_flags(check_cuda_h: bool = False) -> tuple:
+    flags = GXX_FLAGS
+    if check_cuda_h:
+        flags += ("-DKUBESHARE_CHECK_CUDA_H", "-I" + _cuda_include())
+    return flags
+
+
+def interposer_path(check_cuda_h: bool = False) -> Path:
+    """Where the interposer built with these flags lies."""
+    digest = hashlib.sha256((_CSRC / "cuda_interposer.cc").read_bytes())
+    digest.update((_CSRC / "cuda_decls.h").read_bytes())
+    digest.update(" ".join(interposer_flags(check_cuda_h)).encode())
+    tag = "-check" if check_cuda_h else ""
+    return BUILD_DIR / f"libcuda_interposer{tag}-{digest.hexdigest()[:16]}.so"
+
+
+def build_interposer(check_cuda_h: bool = False) -> Path:
+    """Compile ``csrc/cuda_interposer.cc`` with g++ unless its library is
+    already built; returns the library's path."""
+    out = interposer_path(check_cuda_h)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: it builds the CUDA interposer")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [gxx, *interposer_flags(check_cuda_h), "-o", str(tmp),
+           str(_CSRC / "cuda_interposer.cc"), "-ldl"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"g++ failed to build the CUDA interposer ({proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or none
+    return out

@@ -15,6 +15,7 @@ relative). The decode servers run a float32 Llama, whose greedy tokens
 must agree exactly. Staged batches bit for bit.
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -341,3 +342,65 @@ def test_one_capture_stream_is_safe_without_cublas_workspace(cuda):
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+_CHARGED_CHILD = """
+import json, sys, torch
+from kubeshare_tpu_torch.runtime import interposer
+warm = torch.ones(16 << 20, dtype=torch.uint8, device="cuda")
+outcome = "ok"
+try:
+    block = torch.empty(int(sys.argv[1]), dtype=torch.uint8, device="cuda")
+    block.fill_(1)
+    torch.cuda.synchronize()
+except torch.cuda.OutOfMemoryError:
+    outcome = "oom"
+print(json.dumps({"outcome": outcome, "interposer": interposer.stats()}))
+"""
+
+
+def test_interposer_charges_a_child_and_caps_it(cuda, tmp_path):
+    """A child torch process under the CUDA interposer is charged for a
+    1 GiB tensor through its tpu-pmgr; past a 512 MiB cap the same
+    tensor gets torch.cuda.OutOfMemoryError, while a 16 MiB one before
+    it is charged."""
+    from kubeshare_tpu_torch.bench.arbiter import (
+        free_port, start_arbiter, start_pod_manager, stop_arbiter,
+    )
+    from kubeshare_tpu_torch.nodeconfig.files import ConfigEntry
+    from kubeshare_tpu_torch.runtime import interposer
+    from kubeshare_tpu_torch.runtime.client import TokenClient
+    from kubeshare_tpu_torch.runtime.native import build_interposer
+
+    build_interposer()
+    gib, cap = 1 << 30, 512 << 20
+    arbiter_port = free_port()
+    procs = [start_arbiter(str(tmp_path), "gpu-0", [
+        ConfigEntry("ns/big", 1.0, 0.5, 0),
+        ConfigEntry("ns/small", 1.0, 0.5, cap)], arbiter_port)]
+    try:
+        outcomes = {}
+        for pod in ("ns/big", "ns/small"):
+            port = free_port()
+            procs.append(start_pod_manager(pod, port, arbiter_port))
+            env = interposer.enable(dict(
+                os.environ, KUBESHARE_POD_MANAGER_PORT=str(port),
+                KUBESHARE_POD_NAME=pod))
+            assert interposer.enabled(env)
+            out = subprocess.run(
+                [sys.executable, "-c", _CHARGED_CHILD, str(gib)], env=env,
+                cwd=pathlib.Path(__file__).resolve().parents[1],
+                capture_output=True, text=True, timeout=300)
+            assert out.returncode == 0, out.stderr
+            outcomes[pod] = json.loads(out.stdout.strip().splitlines()[-1])
+        with TokenClient("127.0.0.1", arbiter_port) as client:
+            stats = {s.pod: s for s in client.stats()}
+    finally:
+        for proc in procs:
+            stop_arbiter(proc)
+    assert outcomes["ns/big"]["outcome"] == "ok"
+    assert outcomes["ns/big"]["interposer"]["mode"] == "gated"
+    assert stats["ns/big"].mem_used >= gib
+    assert outcomes["ns/small"]["outcome"] == "oom"
+    assert outcomes["ns/small"]["interposer"]["mem_denied"] >= 1
+    assert 0 < stats["ns/small"].mem_used <= cap
