@@ -80,6 +80,25 @@ nonzero and prints no result:
     must show both pods. Then one pod alone without the interposer, under
     it passing through, and gated: step ms, printed, not enforced.
 
+18. a gang on the card (``parallel/``): four rank processes that share
+    the card (spawned after the kernels are built here; the backend rule
+    picks gloo), first ring (flash hops) and Ulysses (flash core)
+    attention on their shards against plain attention in this process;
+    then the sequence-parallel Llama step, sp = 4, at the ~200M config
+    of ``bench/kernels.py`` on [1, 32769] tokens (T_local = 8192, the
+    vocab-chunked loss, AdamW), ring then Ulysses: the loss and a few
+    summed gradients against ``llama_loss`` in this process at the same
+    weights and tokens, each rank's step ms, peak memory, bytes and
+    seconds through ``comm.py`` and kernel launches per step (every rank
+    must launch all three, and its backward must see a non-zero lse
+    cotangent); this process' one-process step at the same size beside
+    them; the three kernels at the ring's hop shape and the Ulysses core
+    shape against their plain versions, timed. Then two 2-process CLI
+    gangs at once (``--model resnet`` and ``--model llama``) and
+    ``bench/configs.py resnet`` (BASELINE config 4) for one round. Every
+    world's backend is printed; a rank that fails or outlives its limit
+    fails the phase.
+
 Then each phase's seconds, the ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device, and
 g++ for ``tpu-schd``, ``tpu-pmgr`` and the interposer (each is built
@@ -90,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -227,6 +247,159 @@ def flash_bound_ms(shape, dtype_name: str, causal: bool, window: int,
     t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / PEAK_FLOPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+# Phase 18: the sequence-parallel Llama at the ~200M config of
+# bench/kernels.py (bench_kernels.py:95-98), sp = 4 ranks on one card,
+# T_local = 8192, the vocab chunk of its MFU step, and one step timed
+# after an untimed forward and backward. The attention check runs at
+# T = 8192 (plain attention in one process holds [1, 16, T, T] float32
+# scores).
+SP_RANKS = 4
+SP_SEQ = 32768
+SP_STEPS = 1
+SP_ATTENTION = (1, 16, 8, 8192, 64)        # B, H, Hkv, T, D
+SP_PROBE = ("final_norm", "layers.0.wq", "layers.5.w_gate", "layers.11.wo")
+# The SP loss against llama_loss in one process (bf16 activations; the
+# ring merges hops in float32 and sums the vocab-chunked partials in
+# another order), relative.
+SP_LOSS_REL_TOL = 2e-2
+# Outputs at the long shapes of phase 18 (ring and Ulysses attention
+# against the kernels' plain version in one process, and the kernels at
+# the ring's hop and the Ulysses core shapes): with unit-normal inputs a
+# row that averages n keys has entries of ~sqrt(e / n), 0.013-0.018 at
+# n = 8192, so an absolute bound is as large as the values. Each output
+# row is held instead by its error's norm over its own norm. Both sides
+# round P to bf16 before the PV product (2^-9 relative, errors of
+# either sign) and the output at the end; the ring also rounds each
+# hop's output before the merge. That is ~3e-3 relative a row, a little
+# more in the worst of 131072 rows; 1e-2 is 2.5 bf16 ulps (2^-8), and a
+# row that loses or mis-weighs a slice of its keys moves by far more.
+# The lse (float32 on both sides) is held to phase 2's bound.
+SP_ROW_REL_TOL = 1e-2
+# CLI gang steps and the resnet bench's phase (seconds, one round).
+GANG_STEPS = 10
+RESNET_PHASE_S = 2.0
+
+
+def row_rel_err(got, want) -> float:
+    """The largest over rows (the last dim) of ||got - want|| / ||want||."""
+    diff = (got.float() - want.float()).norm(dim=-1)
+    return (diff / want.float().norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def sp_rank(joined, seed: int) -> dict:
+    """One rank of phase 18's world (module docstring): ring and Ulysses
+    attention on this rank's shards, then the sp Llama probe and steps
+    for each. Returns CPU tensors and numbers."""
+    import importlib
+
+    import torch
+
+    from kubeshare_tpu_torch.bench.kernels import MFU_CONFIG, MFU_VOCAB_CHUNK
+    from kubeshare_tpu_torch.models.llama import init_llama, make_llama_sp_loss
+    from kubeshare_tpu_torch.parallel import (
+        MeshPlan, comm, make_mesh, make_sharded_train_step,
+        make_ulysses_attention, ring_attention_with_lse,
+    )
+
+    attn = importlib.import_module("kubeshare_tpu_torch.ops.attention")
+    device, n, rank = joined.device, joined.world, joined.rank
+    mesh = make_mesh(MeshPlan(sp=n))
+    out = {"backend": joined.backend, "device": str(device),
+           "attention": {}}
+    batch, heads, kv_heads, t, head_dim = SP_ATTENTION
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn(batch, heads, t, head_dim, generator=gen,
+                         device=device).bfloat16() for _ in range(2))
+    k, v = (torch.randn(batch, kv_heads, t, head_dim, generator=gen,
+                        device=device).bfloat16() for _ in range(2))
+    lo, hi = rank * t // n, (rank + 1) * t // n
+    ulysses = make_ulysses_attention(mesh, causal=True, use_flash=True)
+    for impl in ("ring", "ulysses"):
+        shards = [x[:, :, lo:hi].contiguous().requires_grad_()
+                  for x in (q, k, v)]
+        lse = None
+        if impl == "ring":
+            o, lse = ring_attention_with_lse(*shards, mesh.group("sp"),
+                                             causal=True, use_flash=True)
+        else:
+            o = ulysses(*shards)
+        grads = torch.autograd.grad(o, shards, do[:, :, lo:hi])
+        out["attention"][impl] = [x.detach().cpu() for x in (o, *grads)]
+        out["attention"][impl + "_lse"] = (None if lse is None
+                                           else lse.detach().cpu())
+    del q, k, v, do, shards, o, grads, lse
+
+    cfg = dataclasses.replace(MFU_CONFIG, max_seq_len=SP_SEQ)
+    tokens = torch.randint(0, cfg.vocab, (1, SP_SEQ + 1),
+                           generator=torch.Generator(device=device)
+                           .manual_seed(seed + 1), device=device)
+    real_backward = attn.flash_backward
+    for impl in ("ring", "ulysses"):
+        model = init_llama(cfg, generator=torch.Generator(device=device)
+                           .manual_seed(seed), device=device, trainable=True)
+        loss_fn = make_llama_sp_loss(cfg, mesh, impl=impl, use_flash=True,
+                                     vocab_chunk=MFU_VOCAB_CHUNK)
+        step, model, _ = make_sharded_train_step(loss_fn, model, mesh,
+                                                 learning_rate=1e-4,
+                                                 fsdp=False)
+        # the probe: one forward and backward; the lse cotangents the
+        # backward kernels see
+        seen = {"backward_calls": 0, "with_g_lse": 0, "g_lse_max_abs": 0.0}
+
+        def probe(*args, **kwargs):
+            g_lse = args[6] if len(args) > 6 else kwargs.get("g_lse")
+            seen["backward_calls"] += 1
+            if g_lse is not None:
+                seen["with_g_lse"] += 1
+                seen["g_lse_max_abs"] = max(seen["g_lse_max_abs"],
+                                            g_lse.abs().max().item())
+            return real_backward(*args, **kwargs)
+
+        attn.flash_backward = probe
+        try:
+            loss = loss_fn(model, tokens)
+            loss.backward()
+        finally:
+            attn.flash_backward = real_backward
+        world = comm.world()
+        named = dict(model.named_parameters())
+        probe_loss = float(comm.all_reduce_(loss.detach().float().clone(),
+                                            world))
+        probe_grads = {name: comm.all_reduce_(
+            named[name].grad.float().clone(), world).cpu()
+            for name in SP_PROBE}
+        model.zero_grad(set_to_none=True)
+        del loss
+        # the probe warmed the kernels, the allocator and the groups
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for name in attn.LAUNCHES:
+            attn.LAUNCHES[name] = 0
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        for _ in range(SP_STEPS):
+            last = step(tokens)
+        last = float(last)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / SP_STEPS
+        launches = dict(attn.LAUNCHES)
+        stats = comm.stats()
+        out[impl] = {
+            "probe_loss": probe_loss, "probe_grads": probe_grads,
+            "probe_backward": seen, "last_loss": last,
+            "step_ms": 1e3 * step_s,
+            "launches_per_step": {k: v / SP_STEPS
+                                  for k, v in launches.items()},
+            "launches": launches,
+            "comm_per_step": {k: v / SP_STEPS for k, v in stats.items()},
+            "peak_bytes": torch.cuda.max_memory_allocated(device),
+        }
+        del model, step, loss_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1455,6 +1628,271 @@ def main() -> int:
                      "mnist": 1e3 / pod["mnist"]["step_ms"]}
               for name, pod in pods.items()}})
 
+    # ---- 18. a gang on the card: sequence and data parallelism ---------
+    mark("18_gang")
+    from kubeshare_tpu_torch.bench.kernels import MFU_CONFIG, MFU_VOCAB_CHUNK
+    from kubeshare_tpu_torch.parallel import (
+        MeshPlan as SpPlan, make_mesh as sp_mesh, make_sharded_train_step,
+    )
+    from kubeshare_tpu_torch.parallel.launch import run_world
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # this process' one-process reference at the same weights and tokens
+    sp_cfg = dataclasses.replace(MFU_CONFIG, max_seq_len=SP_SEQ)
+    sp_tokens = torch.randint(0, sp_cfg.vocab, (1, SP_SEQ + 1),
+                              generator=torch.Generator(device=device)
+                              .manual_seed(args.seed + 1), device=device)
+    one = init_llama(sp_cfg, generator=torch.Generator(device=device)
+                     .manual_seed(args.seed), device=device, trainable=True)
+
+    def one_loss(m, t):
+        return llama_loss(m, t, vocab_chunk=MFU_VOCAB_CHUNK)
+
+    loss = one_loss(one, sp_tokens)
+    loss.backward()
+    one_named = dict(one.named_parameters())
+    one_ref = {"loss": float(loss.detach()),
+               "grads": {name: one_named[name].grad.float().cpu()
+                         for name in SP_PROBE}}
+    one.zero_grad(set_to_none=True)
+    del loss
+    one_step, one, _ = make_sharded_train_step(
+        one_loss, one, sp_mesh(SpPlan()), learning_rate=1e-4, fsdp=False)
+    one_step(sp_tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    for _ in range(SP_STEPS):
+        one_last = one_step(sp_tokens)
+    one_last = float(one_last)
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0) / SP_STEPS
+    one_launches = {k: v / SP_STEPS for k, v in LAUNCHES.items()}
+    one_peak = torch.cuda.max_memory_allocated()
+    del one, one_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the world: its ranks load the kernels built in phase 1
+    t0 = time.perf_counter()
+    sp_world = run_world(sp_rank, SP_RANKS, args=(args.seed,), timeout=600,
+                         device_type="cuda")
+    world_s = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" for r in sp_world)
+          or torch.cuda.device_count() >= SP_RANKS,
+          f"backends {[r['backend'] for r in sp_world]}")
+
+    # ring and Ulysses attention against plain attention, here
+    batch, heads, kv_heads, t, head_dim = SP_ATTENTION
+    agen = torch.Generator(device=device).manual_seed(args.seed)
+    aq, ado = (torch.randn(batch, heads, t, head_dim, generator=agen,
+                           device=device).bfloat16() for _ in range(2))
+    ak, av = (torch.randn(batch, kv_heads, t, head_dim, generator=agen,
+                          device=device).bfloat16() for _ in range(2))
+    ref_out, ref_lse = flash_attention_reference(aq, ak, av, True)
+    leaves = [x.detach().requires_grad_() for x in (aq, ak, av)]
+    plain = attn.attention(*leaves, causal=True)
+    plain_grads = torch.autograd.grad(plain, leaves, ado)
+    attention_rows = {}
+    for impl in ("ring", "ulysses"):
+        got = [torch.cat([r["attention"][impl][i] for r in sp_world],
+                         dim=2).to(device) for i in range(4)]
+        attention_rows[impl] = {
+            "out_row_rel_err": row_rel_err(got[0], ref_out),
+            "out_max_abs_err": (got[0].float() - ref_out.float()).abs()
+            .max().item(),
+            "grad_rel_err": {n: rel_err(g, w) for n, g, w
+                             in zip("qkv", got[1:], plain_grads)}}
+    ring_lse = torch.cat([r["attention"]["ring_lse"] for r in sp_world],
+                         dim=2).to(device)
+    attention_rows["ring"]["lse_max_abs_err"] = (
+        ring_lse - ref_lse).abs().max().item()
+    del (aq, ak, av, ado, leaves, plain, plain_grads, got, ref_out, ref_lse,
+         ring_lse)
+    torch.cuda.empty_cache()
+    emit({"phase": "sp_attention", "card": smi, "shape": list(SP_ATTENTION),
+          "ranks": SP_RANKS, "backends": [r["backend"] for r in sp_world],
+          "reference": "flash_attention_reference (out, lse); gradients "
+                       "of plain attention",
+          "out_row_rel_tol": SP_ROW_REL_TOL,
+          "lse_tol": TOL["bfloat16"]["lse"], "grad_rel_tol": GRAD_REL_TOL,
+          **attention_rows})
+    for impl, row in attention_rows.items():
+        check(row["out_row_rel_err"] <= SP_ROW_REL_TOL
+              and row.get("lse_max_abs_err", 0.0) <= TOL["bfloat16"]["lse"]
+              and max(row["grad_rel_err"].values()) <= GRAD_REL_TOL,
+              f"{impl} attention against plain attention: {row}")
+
+    sp_rows = {}
+    for impl in ("ring", "ulysses"):
+        per_rank = [r[impl] for r in sp_world]
+        summed = {name: per_rank[0]["probe_grads"][name]
+                  for name in SP_PROBE}
+        grad_rel = {name: rel_err(summed[name], one_ref["grads"][name])
+                    for name in SP_PROBE}
+        loss_rel = abs(per_rank[0]["probe_loss"] - one_ref["loss"]) / abs(
+            one_ref["loss"])
+        step_ms = per_rank[0]["step_ms"]
+        sp_rows[impl] = {
+            "loss": per_rank[0]["probe_loss"], "one_process_loss":
+            one_ref["loss"], "loss_rel_err": loss_rel,
+            "grad_rel_err": grad_rel, "step_ms": step_ms,
+            "tokens_per_s": SP_SEQ / (step_ms / 1e3),
+            "last_loss": [r["last_loss"] for r in per_rank],
+            "launches_per_rank_step": [r["launches_per_step"]
+                                       for r in per_rank],
+            "probe_backward": [r["probe_backward"] for r in per_rank],
+            "comm_per_rank_step": [r["comm_per_step"] for r in per_rank],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in per_rank]}
+        emit({"phase": "sp_llama", "impl": impl, "card": smi,
+              "config": dataclasses.asdict(sp_cfg), "ranks": SP_RANKS,
+              "t_local": SP_SEQ // SP_RANKS, "vocab_chunk": MFU_VOCAB_CHUNK,
+              "steps_timed": SP_STEPS, "loss_rel_tol": SP_LOSS_REL_TOL,
+              **sp_rows[impl], "one_process_step_ms": one_ms,
+              "one_process_tokens_per_s": SP_SEQ / (one_ms / 1e3),
+              "one_process_launches_per_step": one_launches,
+              "one_process_peak_bytes": one_peak,
+              "world_seconds": world_s})
+        check(loss_rel <= SP_LOSS_REL_TOL
+              and max(grad_rel.values()) <= GRAD_REL_TOL,
+              f"{impl}: the SP loss against llama_loss: {sp_rows[impl]}")
+        check(all(math.isfinite(x) for x in sp_rows[impl]["last_loss"]),
+              f"{impl}: non-finite loss")
+        for r, row in enumerate(per_rank):
+            check(all(row["launches"][k] > 0 for k in LAUNCHES),
+                  f"{impl}: rank {r} did not launch every kernel: "
+                  f"{row['launches']}")
+            if impl == "ring" and r > 0:
+                seen = row["probe_backward"]
+                check(seen["with_g_lse"] > 0 and seen["g_lse_max_abs"] > 0,
+                      f"ring rank {r}: no lse cotangent reached the "
+                      f"backward: {seen}")
+
+    # the three kernels at the ring's hop shape (an earlier shard: full)
+    # and the Ulysses core (the full sequence of a head slice: causal)
+    sp_kernel_rows = []
+    t_local = SP_SEQ // SP_RANKS
+    hkv_slice = MFU_CONFIG.num_kv_heads // SP_RANKS
+    for suffix, shape, causal in (
+            ("_ring_hop", (1, MFU_CONFIG.num_heads, MFU_CONFIG.num_kv_heads,
+                           t_local, t_local, 64), False),
+            ("_ulysses", (1, MFU_CONFIG.num_heads // SP_RANKS, hkv_slice,
+                          SP_SEQ, SP_SEQ, 64), True)):
+        batch, heads, kv_heads, t_q, t_k, head_dim = shape
+        q, do = (randn(batch, heads, t_q, head_dim, dtype=torch.bfloat16)
+                 for _ in range(2))
+        k, v = (randn(batch, kv_heads, t_k, head_dim, dtype=torch.bfloat16)
+                for _ in range(2))
+        g_lse = randn(batch, heads, t_q, 1, dtype=torch.float32)
+        out, lse = flash_forward(q, k, v, causal)
+        ref_out, ref_lse = flash_attention_reference(q, k, v, causal)
+        fwd_err = (out.float() - ref_out.float()).abs().max().item()
+        fwd_row_rel = row_rel_err(out, ref_out)
+        lse_err = (lse - ref_lse).abs().max().item()
+        got = flash_backward(q, k, v, out, lse, do, g_lse, causal)
+        want = flash_backward_reference(q, k, v, out, lse, do, g_lse, causal)
+        bwd_abs = {n: (a.float() - b.float()).abs().max().item()
+                   for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        bwd_rel = {n: rel_err(a, b)
+                   for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        check(fwd_row_rel <= SP_ROW_REL_TOL
+              and lse_err <= TOL["bfloat16"]["lse"]
+              and max(bwd_rel.values()) <= BWD_REL_TOL["bfloat16"],
+              f"kernels at {shape}: out rows {fwd_row_rel}, lse {lse_err}, "
+              f"bwd {bwd_rel}")
+        scale = head_dim ** -0.5
+        bwd_in = (q, k, v, do, lse, attn._flash_delta(out, do, g_lse))
+        # SDPA on k and v repeated to q's heads (its flash backend at
+        # these lengths; the repeat is outside the timed call)
+        kr, vr = attn._repeat_kv(k, v, heads)
+        ms = interleaved_ms({
+            "flash_fwd": lambda: flash_forward(q, k, v, causal),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                q, kr, vr, is_causal=causal),
+            "flash_bwd_dq": lambda: attn._flash_bwd_dq_cuda(
+                *bwd_in, causal, scale, 0),
+            "flash_bwd_dkv": lambda: attn._flash_bwd_dkv_cuda(
+                *bwd_in, causal, scale, 0),
+            "sdpa_bwd": sdpa_backward(q, kr, vr, do, causal)}, rounds=5)
+        # the plain versions ran once above, which warmed them
+        plain_fwd_ms = cuda_ms(lambda: flash_attention_reference(
+            q, k, v, causal), 1, warmup=0, batches=1)
+        plain_bwd_ms = cuda_ms(lambda: flash_backward_reference(
+            q, k, v, out, lse, do, g_lse, causal), 1, warmup=0, batches=1)
+        impl = "ring" if suffix == "_ring_hop" else "ulysses"
+        launched = {k: sum(r[impl]["launches"][k] for r in sp_world)
+                    for k in LAUNCHES}
+        for name, kind, err, plain_ms, library in (
+                ("flash_fwd", "fwd", fwd_err, plain_fwd_ms, "sdpa"),
+                ("flash_bwd_dq", "bwd_dq", bwd_abs["dq"], plain_bwd_ms,
+                 "sdpa_bwd"),
+                ("flash_bwd_dkv", "bwd_dkv", max(bwd_abs["dk"],
+                                                 bwd_abs["dv"]),
+                 plain_bwd_ms, "sdpa_bwd")):
+            bound_ms, bound_by = flash_bound_ms(shape, "bfloat16", causal,
+                                                0, kind)
+            sp_kernel_rows.append({
+                "name": name + suffix, "shape": list(shape),
+                "route": "cuda",
+                "source": ("kubeshare_tpu_torch/ops/csrc/flash_fwd.cu"
+                           if kind == "fwd" else
+                           "kubeshare_tpu_torch/ops/csrc/flash_bwd.cu"),
+                "replaces": {"fwd": "kubeshare_tpu/ops/attention.py:121",
+                             "bwd_dq": "kubeshare_tpu/ops/attention.py:300",
+                             "bwd_dkv": "kubeshare_tpu/ops/attention.py:348"
+                             }[kind],
+                # every rank's launches in the timed sp = 4 steps
+                "launches": launched[name],
+                "max_abs_err": err, "ms": ms[name], "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": ms[library]})
+        emit({"phase": "sp_kernels", "shape": list(shape), "causal": causal,
+              "g_lse": True, "fwd_max_abs_err": fwd_err,
+              "fwd_row_rel_err": fwd_row_rel, "row_rel_tol": SP_ROW_REL_TOL,
+              "lse_max_abs_err": lse_err, "lse_tol": TOL["bfloat16"]["lse"],
+              "bwd_rel_err": bwd_rel, "ms": ms,
+              "plain_ms": {"fwd": plain_fwd_ms, "bwd": plain_bwd_ms},
+              "timing": "median of 5 rounds of 20 back-to-back launches "
+                        "queued behind a sleep, in turns with SDPA"})
+        del (q, k, v, kr, vr, do, g_lse, out, lse, ref_out, ref_lse, got,
+             want, bwd_in)
+        torch.cuda.empty_cache()
+
+    # the CLI's gang path: two processes through the gang env, the two
+    # gangs at once (their start-up, not the card, takes the time)
+    with ThreadPoolExecutor(2) as pool:
+        gang_runs = dict(zip(("resnet", "llama"), pool.map(
+            lambda name: pod_configs.run_cli_gang(
+                ["--model", name, "--steps", str(GANG_STEPS)], 2,
+                timeout=300), ("resnet", "llama"))))
+    for model_name, run in gang_runs.items():
+        emit({"phase": "cli_gang", "model": model_name, "card": smi,
+              "outcome": run["outcome"], "seconds": run["seconds"],
+              "joined": run["joined"], "docs": run["docs"]})
+        check(run["ok"] and all(d and d["processes"] == 2
+                                and d["steps"] == GANG_STEPS
+                                and math.isfinite(d["final_loss"])
+                                for d in run["docs"])
+              and run["docs"][0]["final_loss"] == run["docs"][1]["final_loss"],
+              f"CLI gang {model_name}: {run}")
+    # BASELINE config 4, one round
+    resnet_doc = pod_configs.run_resnet_dp(phase_seconds=RESNET_PHASE_S,
+                                           rounds=1)
+    emit({"phase": "resnet_dp", **resnet_doc})
+    check(math.isfinite(resnet_doc["value"]) and resnet_doc["value"] > 0
+          and resnet_doc["dp8_vs_single_loss_rel_err"] <= RESNET_REL_TOL
+          and all(math.isfinite(x) for x in resnet_doc["dp8_last_loss"]),
+          f"resnet dp: {resnet_doc}")
+    emit({"phase": "gang_backends",
+          "sp_world": [r["backend"] for r in sp_world],
+          "cli_gang": {m: run["joined"] for m, run in gang_runs.items()},
+          "resnet_dp8": resnet_doc["dp8_backend"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     mark("end")
     marks = list(phase_started.items())
     emit({"phase": "timing",
@@ -1473,7 +1911,7 @@ def main() -> int:
     emit({"kernels": [fwd_rows[""], bwd_rows["flash_bwd_dq"],
                       bwd_rows["flash_bwd_dkv"], fwd_rows["_d32"],
                       bwd_rows["flash_bwd_dq_d32"],
-                      bwd_rows["flash_bwd_dkv_d32"]]})
+                      bwd_rows["flash_bwd_dkv_d32"], *sp_kernel_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

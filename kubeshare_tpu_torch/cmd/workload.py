@@ -1,5 +1,5 @@
 """Containerized training workload entrypoint (port of
-``kubeshare_tpu/cmd/workload.py``, its single-process path).
+``kubeshare_tpu/cmd/workload.py``).
 
     python -m kubeshare_tpu_torch.cmd.workload --model mnist [--device cpu]
 
@@ -10,18 +10,32 @@ KUBESHARE_HBM_LIMIT_BYTES) and amortizes token holds across steps; on a
 whole-device or dev run it is a no-op. Prints one JSON line of
 throughput stats at exit, with the reference's keys.
 
+A gang pod (the gang env: ``JAX_COORDINATOR_ADDRESS`` and a process
+count of at least 2, ``parallel/multihost.py``) joins the gang's world
+before any CUDA work and trains data-parallel: each process draws its
+own block of the global batch from (seed, process id), the gradients
+are summed over the gang (``parallel/train.py``, AdamW), the duration
+stop is a collective decision, the throughput printed is the gang's,
+and process 0 writes the checkpoints while the others wait for it.
+
+``--sp N`` (llama) trains one sequence sharded over N ranks: the
+reference runs them on N local devices of one process; here N rank
+processes are spawned, rank r on ``cuda:(r % device_count())``, ring or
+Ulysses attention inside the trunk (``make_llama_sp_loss``), and rank 0
+holds the pod's gate around each step and prints the JSON line.
+
 Differences from the reference:
 - ``--device`` (default ``cuda``) takes the place of ``JAX_PLATFORMS``;
   without a CUDA device the command fails unless given ``--device cpu``.
 - Images are NCHW. The batch of global step n is drawn from a generator
-  seeded with (seed + 1, n), so a resumed run sees the batches an
-  uninterrupted run would have seen (the reference restarts its data
-  key on resume).
+  seeded with (seed + 1, n) and, in a gang, the process id, so a
+  resumed run sees the batches an uninterrupted run would have seen
+  (the reference restarts its data key on resume).
 - The warm-up before the timed loop runs one forward and backward and
   discards them: the update is in place here, and a warm-up update
   would be a step the counter never records.
-- What needs ``parallel/`` is not ported yet and stops with a
-  ``SystemExit`` that says so: ``--sp`` and a multi-process gang env.
+- A gang's checkpoint is written by process 0 alone (the reference's
+  processes each write their shards of one checkpoint).
 """
 
 from __future__ import annotations
@@ -30,18 +44,14 @@ import argparse
 import json
 import os
 import time
-from typing import Mapping, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
+from ..constants import (  # noqa: F401 - the gang env, for callers
+    ENV_COORDINATOR, ENV_GANG_HEADCOUNT, ENV_NUM_PROCESSES,
+)
 from .common import add_common_flags, component_logger
-
-# the gang env (kubeshare_tpu/parallel/multihost.py)
-ENV_COORDINATOR = "JAX_COORDINATOR_ADDRESS"
-ENV_NUM_PROCESSES = "KUBESHARE_NUM_PROCESSES"
-ENV_GANG_HEADCOUNT = "KUBESHARE_GROUP_HEADCOUNT"
-
-NOT_PORTED = "is not ported yet (kubeshare_tpu/parallel; ROADMAP Queue 1)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,8 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="llama sequence length")
     parser.add_argument(
         "--sp", type=int, default=0,
-        help="shard the llama sequence over N local devices (not ported "
-             "yet; 0 = off)",
+        help="shard the llama sequence over N ranks, spawned here, ring "
+             "or Ulysses attention inside the trunk (0 = off); "
+             "single-pod only: in a gang, dp spans the processes",
     )
     parser.add_argument(
         "--sp-impl", choices=["ring", "ulysses"], default="ring",
@@ -108,21 +119,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def gang_size(environ: Optional[Mapping[str, str]] = None) -> int:
-    """The process count of the multi-process gang this pod belongs to
-    (the reference's ``spec_from_env``: a coordinator and a count of at
-    least 2), else 0."""
-    env = os.environ if environ is None else environ
-    if not env.get(ENV_COORDINATOR, ""):
-        return 0
-    raw = env.get(ENV_NUM_PROCESSES) or env.get(ENV_GANG_HEADCOUNT) or ""
-    try:
-        n = int(raw)
-    except ValueError:
-        return 0
-    return n if n >= 2 else 0
-
-
 def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross entropy over integer labels, in the logits'
     dtype, as ``optax.softmax_cross_entropy_with_integer_labels(...)
@@ -135,13 +131,10 @@ IMAGE_SHAPES = {"mnist": (1, 28), "cifar": (3, 32), "resnet": (3, 32),
                 "vgg": (3, 32)}
 
 
-def _build(model: str, batch: int, device: torch.device, seed: int,
-           seq_len: int = 256, sp: int = 0, sp_impl: str = "ring",
-           sp_flash: bool = False, remat: bool = False, window: int = 0):
-    """(model, loss_fn, batch_at): the model-specific pieces.
-    ``batch_at(n)`` is the batch of global step n."""
-    from .. import models as M
-
+def check_flags(model: str, sp: int = 0, sp_impl: str = "ring",
+                sp_flash: bool = False, remat: bool = False,
+                window: int = 0, seq_len: int = 256) -> None:
+    """The reference's refusals of flags that do not apply."""
     if sp > 0 and model != "llama":
         # refusing beats training unsharded with the flags ignored
         raise SystemExit(f"--sp applies to --model llama, not {model}")
@@ -155,14 +148,29 @@ def _build(model: str, batch: int, device: torch.device, seed: int,
             "(flash hop bodies lack a query-offset input); drop "
             "--sp-flash or use --sp-impl ulysses"
         )
-    if sp > 0:
-        raise SystemExit(f"--sp (sequence parallelism) {NOT_PORTED}")
+    if sp > 0 and seq_len % sp:
+        raise SystemExit(f"--seq-len {seq_len} must divide over --sp {sp}")
+
+
+def _build(model: str, batch: int, device: torch.device, seed: int,
+           seq_len: int = 256, sp: int = 0, sp_impl: str = "ring",
+           sp_flash: bool = False, remat: bool = False, window: int = 0,
+           mesh=None, process_id: int = 0):
+    """(model, loss_fn, batch_at): the model-specific pieces.
+    ``batch_at(n)`` is the batch of global step n (this process' block
+    of it in a gang). With ``sp > 0`` the llama loss is
+    ``make_llama_sp_loss`` over ``mesh``'s sp group and a batch holds
+    ``seq_len + 1`` tokens a row. The flags are ``check_flags``'s to
+    refuse, before any rank is spawned."""
+    from .. import models as M
 
     gen = torch.Generator(device=device).manual_seed(seed)
     data = torch.Generator(device=device)
 
     def draw(index: int) -> torch.Generator:
-        return data.manual_seed(((seed + 1) << 32) + index)
+        # a gang process' own stream; process 0's is the single run's
+        return data.manual_seed((process_id << 56) ^ (((seed + 1) << 32)
+                                                       + index))
 
     if model in ("llama", "lstm"):
         if model == "llama":
@@ -172,10 +180,18 @@ def _build(model: str, batch: int, device: torch.device, seed: int,
             net = M.init_llama(cfg, generator=gen, device=device,
                                trainable=True)
 
-            def loss_fn(m, tokens):
-                return M.llama_loss(m, tokens, remat=remat)
+            if sp > 0:
+                loss_fn = M.make_llama_sp_loss(cfg, mesh, impl=sp_impl,
+                                               use_flash=sp_flash,
+                                               remat=remat)
+                # the loss trains on tokens[:, :-1]: seq_len + 1 tokens
+                # shard the trained positions evenly
+                length = seq_len + 1
+            else:
+                def loss_fn(m, tokens):
+                    return M.llama_loss(m, tokens, remat=remat)
 
-            length = seq_len
+                length = seq_len
         else:
             cfg = M.LstmConfig()
             net = M.init_lstm(cfg, generator=gen, device=device)
@@ -221,31 +237,49 @@ def _build(model: str, batch: int, device: torch.device, seed: int,
     return net, loss_fn, batch_at
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
-    log = component_logger("workload", args)
-    if not args.steps and not args.duration:
-        args.steps = 100
+def _collective_stop(stop: bool, elapsed: float, world, device
+                     ) -> tuple:
+    """(any rank's stop, the largest elapsed time) over the world."""
+    from ..parallel import comm
 
-    from ..runtime.hook import _block, install_gate
+    flags = torch.tensor([1.0 if stop else 0.0, elapsed], device=device)
+    comm.all_reduce_(flags, world, op="max")
+    return bool(flags[0].item()), float(flags[1].item())
 
-    gate = install_gate()     # before any CUDA work: it may cap the allocator
 
-    if gang_size():
-        # the reference joins jax.distributed here and trains dp-sharded
-        raise SystemExit(f"multi-process gang training {NOT_PORTED}")
-
+def _train(args: argparse.Namespace, log, gate, device: torch.device,
+           joined=None, mesh=None) -> Optional[dict]:
+    """Build, restore, warm up and run the training loop; returns the
+    result document (None on a rank that does not report). ``joined``
+    and ``mesh``: this rank's world (a gang: dp over the processes; an
+    sp rank: sp over the ranks); None for a single process."""
     from ..models.train import (
         accumulated_value_and_grad, check_accum_batch, make_train_step,
     )
-    from ..utils.device import resolve_device
+    from ..parallel import comm
+    from ..runtime.hook import _block
 
-    device = resolve_device(None if args.device == "cuda" else args.device)
+    gang = joined is not None and not args.sp
+    lead = joined is None or joined.rank == 0
+    world_group = comm.world()
     model, loss_fn, batch_at = _build(
         args.model, args.batch, device, args.seed, args.seq_len, args.sp,
-        args.sp_impl, args.sp_flash, args.remat, args.window)
-    opt, step = make_train_step(loss_fn, model, learning_rate=args.lr,
-                                accum_steps=args.accum)
+        args.sp_impl, args.sp_flash, args.remat, args.window, mesh,
+        joined.rank if gang else 0)
+    if mesh is None:
+        opt, step = make_train_step(loss_fn, model, learning_rate=args.lr,
+                                    accum_steps=args.accum)
+    else:
+        from ..parallel import make_sharded_train_step
+
+        sharded, model, opt = make_sharded_train_step(
+            loss_fn, model, mesh, learning_rate=args.lr, fsdp=False,
+            accum_steps=args.accum)
+        # a gang process draws only its own block; an sp rank takes the
+        # whole batch and its loss cuts its shard of the sequence
+        step = sharded.local
+        log.info("rank %d/%d (%s, %s) on mesh %s", joined.rank,
+                 joined.world, joined.backend, device, mesh.shape)
 
     start_step = 0
     if args.checkpoint_dir:
@@ -255,6 +289,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if restored is not None:
             start_step = restored[0]
             log.info("resumed from step %d", start_step)
+
+        def save(at_step: int) -> None:
+            # the lead writes; the others wait until the files are there
+            if lead:
+                save_checkpoint(args.checkpoint_dir, at_step, model, opt)
+            comm.barrier(world_group)
 
     # warm-up outside the gated loop: one forward and backward on the
     # first batch, discarded, so the model and optimizer enter the loop
@@ -267,7 +307,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     log.info("workload %s batch=%d on %s starting", args.model, args.batch,
              device)
     prof = None
-    if args.profile_dir:
+    if args.profile_dir and lead:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -280,6 +320,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     last_saved = -1
     result = None
     feed = None
+    # in a world the stop is collective, at step indices every rank
+    # computes alike from the largest elapsed time: one rank leaving on
+    # its own clock would leave the others waiting in the next step
+    check_next = 0
     if args.prefetch > 0:
         from ..models.data import prefetch_to_device
 
@@ -296,14 +340,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         while True:
             if args.steps and steps_done >= args.steps:
                 break
-            if (args.duration
-                    and time.perf_counter() - started >= args.duration):
+            stop = bool(args.duration
+                        and time.perf_counter() - started >= args.duration)
+            if world_group is not None and args.duration:
+                if steps_done >= check_next:
+                    stop, slowest = _collective_stop(
+                        stop, time.perf_counter() - started, world_group,
+                        device)
+                    # about one check per 0.5 s of steps
+                    check_next = steps_done + (1 if steps_done == 0 else max(
+                        1, min(64, int(0.5 / max(slowest / steps_done,
+                                                 1e-6)))))
+                else:
+                    stop = False
+            if stop:
                 break
             if feed is not None:
                 batch = next(feed)
             else:
                 batch = batch_at(start_step + steps_done)
+            if gate.client is not None:
+                log.debug("step %d: at the gate", steps_done)
             gate.begin()
+            log.debug("step %d: stepping (%d leases taken)", steps_done,
+                      gate.tokens_acquired)
             loss = step(*batch)
             result = gate.maybe_release(loss)
             steps_done += 1
@@ -316,8 +376,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 # checkpoint I/O as device time
                 result = gate.flush(result)
                 _block(loss)
-                save_checkpoint(args.checkpoint_dir, start_step + steps_done,
-                                model, opt)
+                save(start_step + steps_done)
                 last_saved = start_step + steps_done
         gate.flush(result)
         if (
@@ -326,8 +385,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             and last_saved != start_step + steps_done
         ):
             _block(loss)
-            save_checkpoint(args.checkpoint_dir, start_step + steps_done,
-                            model, opt)
+            save(start_step + steps_done)
         _block(loss)    # queued work must not inflate the throughput
         # measured before the feed's teardown: close() is shutdown cost
         elapsed = time.perf_counter() - started
@@ -341,19 +399,95 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 os.path.join(args.profile_dir, "trace.json"))
             log.info("profiler trace written to %s", args.profile_dir)
     gate.close()
-    print(json.dumps({
+    if not lead and not gang:
+        return None
+    processes = joined.world if gang else 1
+    return {
         "model": args.model,
         "steps": steps_done,
         "batch": args.batch,
-        "processes": 1,
-        "global_batch": args.batch,
+        "processes": processes,
+        "global_batch": args.batch * processes,
         "seconds": round(elapsed, 3),
-        "samples_per_s": round(steps_done * args.batch / max(elapsed, 1e-9),
-                               1),
+        # GLOBAL throughput: in a gang every process trains its block
+        # of each step's global batch
+        "samples_per_s": round(
+            steps_done * args.batch * processes / max(elapsed, 1e-9), 1),
         "final_loss": float(loss),
         "tokens_acquired": gate.tokens_acquired,
         "compute_ms": round(gate.compute_ms, 1),
-    }))
+    }
+
+
+def _sp_rank(joined, argv: Sequence[str]) -> Optional[dict]:
+    """One rank of ``--sp N``: the sp mesh over the spawned world; rank
+    0 holds the pod's gate and reports."""
+    from ..parallel import MeshPlan, make_mesh
+    from ..runtime.hook import SharedChipGate, install_gate
+
+    args = _parse(argv)
+    log = component_logger(f"workload-sp{joined.rank}", args)
+    gate = install_gate() if joined.rank == 0 else SharedChipGate(None)
+    mesh = make_mesh(MeshPlan(sp=joined.world))
+    return _train(args, log, gate, joined.device, joined, mesh)
+
+
+def _parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
+    args = build_parser().parse_args(argv)
+    if not args.steps and not args.duration:
+        args.steps = 100
+    return args
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = _parse(argv)
+    log = component_logger("workload", args)
+    check_flags(args.model, args.sp, args.sp_impl, args.sp_flash,
+                args.remat, args.window, args.seq_len)
+
+    from ..parallel.multihost import maybe_initialize, spec_from_env
+    from ..runtime.hook import install_gate
+    from ..utils.device import resolve_device
+
+    in_gang = spec_from_env() is not None
+    if args.prefetch > 0 and (in_gang or args.sp):
+        # refused before any rank joins: a gang's or an sp world's step
+        # is collective, and the feed would run ahead of it
+        raise SystemExit(
+            "--prefetch is single-process (the gang and --sp paths step "
+            "collectively)")
+    if in_gang and args.sp:
+        raise SystemExit(
+            "--sp is single-process (local sequence sharding); in a "
+            "gang, leave it off and let dp span the processes")
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    if args.sp:
+        from ..parallel.launch import run_world
+
+        docs = run_world(_sp_rank, args.sp,
+                         args=(list(argv) if argv is not None else None,),
+                         timeout=None, device_type=device.type)
+        print(json.dumps(docs[0]))
+        return 0
+
+    # a gang joins its world before any CUDA work (the webhook injects
+    # the headcount, the workload spec the coordinator, the Indexed Job
+    # or the hostname the ordinal)
+    joined = mesh = None
+    gang = maybe_initialize(device_type=device.type)
+    if gang is not None:
+        from ..parallel import hybrid_mesh
+
+        _, joined = gang
+        device = joined.device
+        mesh = hybrid_mesh()
+    gate = install_gate()     # before CUDA allocations: it may cap them
+    doc = _train(args, log, gate, device, joined, mesh)
+    print(json.dumps(doc))
+    if joined is not None:
+        from ..parallel import comm
+
+        comm.destroy()
     return 0
 
 

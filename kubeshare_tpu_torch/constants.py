@@ -26,3 +26,14 @@ PORT_DIR = "/kubeshare/scheduler/podmanagerport"
 POD_MANAGER_PORT_START = 50050
 POD_MANAGER_PORT_COUNT = 512
 CHIP_ARBITER_BASE_PORT = 49901
+
+# ---- the gang env (kubeshare_tpu/parallel/multihost.py) --------------
+# the coordinator address of a multi-process gang (set in the workload
+# spec, e.g. the gang's headless-service DNS of member 0), its process
+# count, this process' id, and the gang headcount the admission webhook
+# injects from the pod's gang labels. The names are the pod contract.
+ENV_COORDINATOR = "JAX_COORDINATOR_ADDRESS"
+ENV_NUM_PROCESSES = "KUBESHARE_NUM_PROCESSES"
+ENV_PROCESS_ID = "KUBESHARE_PROCESS_ID"
+ENV_GANG_HEADCOUNT = "KUBESHARE_GROUP_HEADCOUNT"
+ENV_JOB_COMPLETION_INDEX = "JOB_COMPLETION_INDEX"

@@ -16,7 +16,7 @@ from .convert import (
 from .data import Prefetcher, prefetch_to_device
 from .llama import (
     Llama, LlamaBlock, LlamaConfig, init_llama, llama3_8b, llama_apply,
-    llama_generate, llama_loss,
+    llama_generate, llama_loss, make_llama_sp_loss,
 )
 from .lstm import LstmConfig, init_lstm, lstm_apply
 from .mnist import MnistConfig, init_mnist, make_mnist_train_step, mnist_apply
@@ -33,7 +33,7 @@ __all__ = [
     "ResNetConfig", "init_resnet", "resnet_apply", "resnet50",
     "VggConfig", "init_vgg", "vgg_apply", "vgg16",
     "Llama", "LlamaBlock", "LlamaConfig", "init_llama", "llama3_8b",
-    "llama_apply", "llama_generate", "llama_loss",
+    "llama_apply", "llama_generate", "llama_loss", "make_llama_sp_loss",
     "llama_from_jax", "llama_to_jax", "mnist_from_jax", "cifar_from_jax",
     "vgg_from_jax", "resnet_from_jax", "lstm_from_jax", "workload_to_jax",
     "param_bytes", "quantize_llama",

@@ -23,14 +23,16 @@ captured as a CUDA graph.
 
 Training: ``llama_loss`` (dense, or vocab-chunked through
 ``ops.xent.chunked_linear_xent``) with ``remat`` per block; the
-optimizer step is ``models/train.py``. The sequence-parallel and
-pipeline trunks are not ported yet (ROADMAP Queue 1).
+optimizer step is ``models/train.py``. ``attn_fn`` swaps the attention
+core, and ``make_llama_sp_loss`` runs the trunk sequence-parallel
+through it (``parallel/``); the pipeline trunk is not ported yet
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -206,9 +208,16 @@ def _matmul(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
 
 
 def llama_block(layer: LlamaBlock, x: torch.Tensor, positions: torch.Tensor,
-                cfg: LlamaConfig,
-                use_flash: Optional[bool] = None) -> torch.Tensor:
-    """One pre-norm transformer block: [B, T, dim] -> [B, T, dim]."""
+                cfg: LlamaConfig, use_flash: Optional[bool] = None,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """One pre-norm transformer block: [B, T, dim] -> [B, T, dim].
+
+    ``attn_fn`` overrides the causal attention core: a callable
+    ``(q [B,H,T,D], k, v [B,Hkv,T,D]) -> [B,H,T,D]`` with causality and
+    the window baked in, which carries the window it bakes as
+    ``.window``: the hook the sequence-parallel trunks use to swap in
+    ring or Ulysses attention (``make_llama_sp_loss``). A window that
+    disagrees with ``cfg.window`` either way is refused."""
     dtype = cfg.torch_dtype
     batch, seq = x.shape[0], x.shape[1]
     hd = cfg.dim // cfg.num_heads
@@ -219,7 +228,17 @@ def llama_block(layer: LlamaBlock, x: torch.Tensor, positions: torch.Tensor,
     q = _rope(q.transpose(1, 2), positions, cfg.rope_theta)   # [B, H, T, D]
     k = _rope(k.transpose(1, 2), positions, cfg.rope_theta)
     v = v.transpose(1, 2).contiguous()
-    out = mha(q, k, v, causal=True, use_flash=use_flash, window=cfg.window)
+    if attn_fn is not None:
+        if getattr(attn_fn, "window", 0) != cfg.window:
+            raise ValueError(
+                f"cfg.window={cfg.window} but attn_fn bakes window="
+                f"{getattr(attn_fn, 'window', 0)}: build the SP core "
+                "with the model's window (make_llama_sp_loss does)"
+            )
+        out = attn_fn(q, k, v)
+    else:
+        out = mha(q, k, v, causal=True, use_flash=use_flash,
+                  window=cfg.window)
     out = out.transpose(1, 2).reshape(batch, seq, cfg.num_heads * hd)
     x = x + _matmul(out, layer.wo, dtype)
 
@@ -232,7 +251,8 @@ def llama_block(layer: LlamaBlock, x: torch.Tensor, positions: torch.Tensor,
 def llama_hidden(model: Llama, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
                  use_flash: Optional[bool] = None,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False,
+                 attn_fn: Optional[Callable] = None) -> torch.Tensor:
     """The trunk: tokens [B, T] -> final-norm hidden [B, T, dim].
 
     ``remat=True`` checkpoints each block: the backward recomputes the
@@ -240,7 +260,7 @@ def llama_hidden(model: Llama, tokens: torch.Tensor,
     forward then runs twice per block and step). The gradients are the
     same bits either way. The reference keeps each block's matmul
     outputs (``dots_with_no_batch_dims_saveable``); here the whole block
-    is recomputed."""
+    is recomputed. ``attn_fn`` as in ``llama_block``."""
     cfg = model.cfg
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -248,33 +268,28 @@ def llama_hidden(model: Llama, tokens: torch.Tensor,
     for layer in model.layers:
         if remat:
             x = checkpoint(llama_block, layer, x, positions, cfg, use_flash,
-                           use_reentrant=False)
+                           attn_fn, use_reentrant=False)
         else:
-            x = llama_block(layer, x, positions, cfg, use_flash)
+            x = llama_block(layer, x, positions, cfg, use_flash, attn_fn)
     return rmsnorm(model.final_norm, x)
 
 
 def llama_apply(model: Llama, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 use_flash: Optional[bool] = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
     """tokens [B, T] -> float32 logits [B, T, vocab] (the lm head's
     output in cfg.dtype, then cast)."""
-    x = llama_hidden(model, tokens, positions, use_flash, remat)
+    x = llama_hidden(model, tokens, positions, use_flash, remat, attn_fn)
     return _matmul(x, model.lm_head, model.cfg.torch_dtype).float()
 
 
-def llama_loss(model: Llama, tokens: torch.Tensor, vocab_chunk: int = 0,
-               remat: bool = False,
-               use_flash: Optional[bool] = None) -> torch.Tensor:
-    """Next-token LM loss on a [B, T] batch: the trunk sees
-    ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``.
-
-    ``vocab_chunk > 0`` goes through the chunked linear cross-entropy
-    (``ops/xent.py``): the [B, T, vocab] logits are never held, and its
-    tile products run in ``cfg.dtype`` like the dense path's lm head.
-    ``remat`` checkpoints each block (``llama_hidden``); ``use_flash``
-    as in ``mha``."""
+def _next_token_loss(model: Llama, inputs: torch.Tensor,
+                     targets: torch.Tensor, positions, vocab_chunk: int,
+                     remat: bool, use_flash: Optional[bool],
+                     attn_fn: Optional[Callable]) -> torch.Tensor:
+    """Mean next-token loss of ``inputs`` [B, T] against ``targets``."""
     if is_quantized(model.lm_head):
         raise ValueError(
             "quantized weights are inference-only (models/quant.py): int8 "
@@ -282,18 +297,88 @@ def llama_loss(model: Llama, tokens: torch.Tensor, vocab_chunk: int = 0,
         )
     if vocab_chunk > 0:
         dtype = model.cfg.torch_dtype
-        hidden = llama_hidden(model, tokens[:, :-1], use_flash=use_flash,
-                              remat=remat)
+        hidden = llama_hidden(model, inputs, positions, use_flash, remat,
+                              attn_fn)
         n = hidden.shape[0] * hidden.shape[1]
         return chunked_linear_xent(
             hidden.reshape(n, -1).to(dtype),
             model.lm_head.to(dtype).t(),            # [dim, vocab]
-            tokens[:, 1:].reshape(n),
+            targets.reshape(n),
             vocab_chunk,
         )
-    logits = llama_apply(model, tokens[:, :-1], use_flash=use_flash,
-                         remat=remat)
-    return cross_entropy_loss(logits, tokens[:, 1:])
+    logits = llama_apply(model, inputs, positions, use_flash, remat, attn_fn)
+    return cross_entropy_loss(logits, targets)
+
+
+def llama_loss(model: Llama, tokens: torch.Tensor, vocab_chunk: int = 0,
+               remat: bool = False,
+               use_flash: Optional[bool] = None,
+               attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Next-token LM loss on a [B, T] batch: the trunk sees
+    ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``.
+
+    ``vocab_chunk > 0`` goes through the chunked linear cross-entropy
+    (``ops/xent.py``): the [B, T, vocab] logits are never held, and its
+    tile products run in ``cfg.dtype`` like the dense path's lm head.
+    ``remat`` checkpoints each block (``llama_hidden``); ``use_flash``
+    as in ``mha``; ``attn_fn`` as in ``llama_block``."""
+    return _next_token_loss(model, tokens[:, :-1], tokens[:, 1:], None,
+                            vocab_chunk, remat, use_flash, attn_fn)
+
+
+def make_llama_sp_loss(cfg: LlamaConfig, mesh, axis_name: str = "sp",
+                       impl: str = "ring", use_flash: Optional[bool] = None,
+                       vocab_chunk: int = 0, remat: bool = False
+                       ) -> Callable:
+    """Sequence-parallel training loss ``(model, tokens) -> scalar`` over
+    the ``axis_name`` group of ``mesh`` (``parallel.make_mesh``), with
+    the attention core run as ring (K/V hops) or Ulysses (all-to-all
+    head scatter) attention.
+
+    ``tokens`` is the [B, n * T_local + 1] batch (every rank of the
+    group passes the same one). Rank r of the group trains on its shard
+    ``tokens[:, :-1][:, r*T_local:(r+1)*T_local]`` against the same
+    columns of ``tokens[:, 1:]``, at RoPE positions
+    ``r * T_local + arange(T_local)``, and returns its partial sum of
+    the token losses over the GLOBAL token count B * n * T_local: a SUM
+    all-reduce over the group gives ``llama_loss``'s mean, and summed
+    gradients give its gradients (``parallel.make_sharded_train_step``
+    sums them). ``use_flash=None`` is ``mha``'s rule: the kernels on
+    the card, the plain version on the CPU. Ring + flash + window is
+    refused when the core is built."""
+    if impl == "ring":
+        from ..parallel.ring_attention import make_ring_attention
+
+        attn = make_ring_attention(mesh, axis_name, causal=True,
+                                   use_flash=use_flash, window=cfg.window)
+    elif impl == "ulysses":
+        from ..parallel.ulysses import make_ulysses_attention
+
+        attn = make_ulysses_attention(mesh, axis_name, causal=True,
+                                      use_flash=use_flash,
+                                      window=cfg.window)
+    else:
+        raise ValueError(f"impl must be 'ring' or 'ulysses', got {impl!r}")
+    n = mesh.shape[axis_name]
+    rank = mesh.coords[axis_name]
+
+    def loss(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+        if model.cfg != cfg:
+            raise ValueError("the model's config is not the loss's")
+        t = tokens.shape[1] - 1
+        if t % n:
+            raise ValueError(f"{t} training positions do not split over "
+                             f"{n} ranks (feed n * T_local + 1 tokens)")
+        t_local = t // n
+        lo = rank * t_local
+        positions = torch.arange(lo, lo + t_local, device=tokens.device)
+        mean = _next_token_loss(
+            model, tokens[:, lo:lo + t_local],
+            tokens[:, lo + 1:lo + t_local + 1], positions, vocab_chunk,
+            remat, None, attn)
+        return mean / n
+
+    return loss
 
 
 # ---- KV-cache inference -------------------------------------------------

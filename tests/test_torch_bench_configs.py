@@ -196,10 +196,11 @@ def test_main_runs_lstm_and_contbatch_and_stops_at_resnet(monkeypatch,
                                                          capsys):
     monkeypatch.setattr(configs, "run_lstm_gang", lambda: {"row": "lstm"})
     monkeypatch.setattr(configs, "run_contbatch", lambda: {"row": "cb"})
+    monkeypatch.setattr(configs, "run_resnet_dp", lambda: {"row": "resnet"})
     assert configs.main(["lstm"]) == 0 and configs.main(["contbatch"]) == 0
-    assert capsys.readouterr().out.splitlines() == ['{"row": "lstm"}',
-                                                    '{"row": "cb"}']
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
-        configs.main(["resnet"])
+    # resnet (BASELINE config 4) runs now: tests/test_torch_dp.py
+    assert configs.main(["resnet"]) == 0
+    assert capsys.readouterr().out.splitlines() == [
+        '{"row": "lstm"}', '{"row": "cb"}', '{"row": "resnet"}']
     assert configs.main(["nope"]) == 2
     assert "usage" in capsys.readouterr().err

@@ -1,7 +1,7 @@
 """kubeshare_tpu_torch/cmd/workload.py on the CPU: every model trains and
 prints the reference CLI's JSON line (the same keys as
 kubeshare_tpu/cmd/workload.py prints), the reference's refusals stand,
-what needs parallel/ stops with a SystemExit that says so, a run with no
+a gang env is joined, not ignored (and refused with --sp), a run with no
 CUDA device and no ``--device cpu`` fails, and checkpoints resume. A
 resumed run ends at the same step and, on the CPU, with the same loss
 bit for bit as an uninterrupted one: both see the same batches and the
@@ -81,7 +81,8 @@ def test_keys_are_the_reference_clis(capsys):
     (["--model", "lstm", "--sp", "2"], "--sp applies to --model llama"),
     (["--model", "llama", "--sp", "2", "--window", "4", "--sp-flash"],
      "ring \\+ --sp-flash"),
-    (["--model", "llama", "--sp", "2"], "not ported yet"),
+    (["--model", "llama", "--sp", "3", "--seq-len", "32"],
+     "must divide over --sp 3"),
 ])
 def test_refusals(argv, message):
     with pytest.raises(SystemExit, match=message):
@@ -89,13 +90,17 @@ def test_refusals(argv, message):
 
 
 def test_a_gang_env_is_refused_not_ignored(monkeypatch):
+    """A gang env is the gang path (tests/test_torch_dp.py runs one): it
+    is not ignored, so --sp and --prefetch in a gang are refused, as in
+    the reference, before the pod joins its gang."""
     monkeypatch.setenv(workload.ENV_COORDINATOR, "10.0.0.1:1234")
     monkeypatch.setenv(workload.ENV_GANG_HEADCOUNT, "2")
-    with pytest.raises(SystemExit, match="gang training is not ported"):
-        workload.main(["--device", "cpu", "--steps", "1"])
-    assert workload.gang_size({workload.ENV_COORDINATOR: "x",
-                               workload.ENV_NUM_PROCESSES: "1"}) == 0
-    assert workload.gang_size({workload.ENV_NUM_PROCESSES: "4"}) == 0
+    monkeypatch.setenv("JOB_COMPLETION_INDEX", "1")
+    with pytest.raises(SystemExit, match="--sp is single-process"):
+        workload.main(["--device", "cpu", "--steps", "1", "--model", "llama",
+                       "--sp", "2"])
+    with pytest.raises(SystemExit, match="--prefetch is single-process"):
+        workload.main(["--device", "cpu", "--steps", "1", "--prefetch", "2"])
 
 
 def test_needs_cuda_unless_told_cpu(monkeypatch):
