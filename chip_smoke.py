@@ -98,6 +98,27 @@ nonzero and prints no result:
     ``bench/configs.py resnet`` (BASELINE config 4) for one round. Every
     world's backend is printed; a rank that fails or outlives its limit
     fails the phase.
+19. the reference's multi-device paths (``__graft_entry__.py``'s dry
+    run) at full width, four rank processes on the card, each leg held
+    against one process at the same weights and inputs (the one process
+    runs first, and its memory is freed before the world starts): (a)
+    FSDP x TP training of ``llama3_8b()`` widths at 2 layers on
+    ``factorize_devices(4, tp_max=2, fsdp_max=2)`` (fsdp 2 x tp 2),
+    tokens [2, 2049], the vocab-chunked loss: step 0's loss and a few
+    gradients' blocks, then 3 AdamW steps timed; every rank must launch
+    each kernel once a layer and step. (b) the pipeline trunk, 8 layers
+    over pp = 4, tokens [4, 2048] in 4 microbatches, remat on: the hidden
+    rows and each rank's layers' gradients of ``sum(hidden * g)``
+    against ``llama_hidden``; every rank must launch every kernel. (c)
+    MoE over ep = 4 (dim 4096, mlp 14336, 4 experts, top 2, capacity
+    1.25) on x [2, 2048, 4096] bf16: y, aux, the dropped tokens and the
+    gradients of x, the router and each rank's expert. (d)
+    ``ElasticTrainer`` 4 -> 2 -> 4 ranks on the workload CLI's Llama:
+    the 6 losses against one process, ``generation`` 2. (e)
+    ``entry.dryrun_multichip(4)`` on the card: its tail line, and
+    ``crossproc=ok``. Each leg's ms, ``comm.stats()`` and peak memory a
+    rank; the three kernels at a tp rank's and a pipeline stage's shapes
+    against their plain versions, timed.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device, and
@@ -121,11 +142,18 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def progress(what: str) -> None:
+    """A line on stderr: where a long phase is (stdout stays JSON)."""
+    print(f"[{time.strftime('%H:%M:%S')}] {what}", file=sys.stderr,
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -400,6 +428,526 @@ def sp_rank(joined, seed: int) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# Phase 19: the reference's multi-device paths (__graft_entry__.py's
+# dry run) at llama3_8b() widths, 4 rank processes on the card, each leg
+# against one process at the same weights and inputs. Depth is cut to
+# fit the time and four ranks' memory on one card: (a) 2 layers, (b) 8.
+MC_RANKS = 4
+MC_TP_LAYERS = 2
+MC_TP_TOKENS = (2, 2049)
+MC_TP_STEPS = 3
+MC_TP_PROBE = ("final_norm", "layers.0.wq", "layers.0.wk",
+               "layers.1.w_down", "layers.1.mlp_norm")
+MC_PP_LAYERS = 8
+MC_PP = 4
+MC_PP_TOKENS = (4, 2048)
+MC_PP_MICROBATCHES = 4
+MC_PP_PROBE = ("attn_norm", "wq", "wk", "wo")
+MC_MOE = dict(dim=4096, mlp_dim=14336, experts=4, top_k=2,
+              capacity_factor=1.25)
+MC_MOE_TOKENS = (2, 2048)
+# (d): the workload CLI's Llama (cmd/workload.py) on 8 rows of 256
+# tokens, AdamW 1e-3, two steps at each membership
+MC_ELASTIC_CFG = dict(vocab=2048, dim=256, layers=4, num_heads=8,
+                      num_kv_heads=4, mlp_dim=512, max_seq_len=256)
+MC_ELASTIC_TOKENS = (8, 256)
+MC_ELASTIC_RANKS = ((0, 1, 2, 3), (0, 1), (0, 1, 2, 3))
+MC_ELASTIC_ONE = ((0,), (0,), (0,))       # one process: the same steps
+MC_ELASTIC_STEPS = 2
+MC_LR = 1e-4
+# (b) and (c) against one process: outputs by each row's norm (the
+# pipeline runs microbatches of 1 where one process runs the batch, so
+# cuBLAS may sum in another order; bf16 activations), as phase 18's.
+# (c)'s aux is float32 from the same router probabilities: 1e-5. (d)'s
+# loss trajectory: the members' gradients summed in float32 in another
+# order than one process's, through bf16 products, 6 AdamW steps of
+# 1e-3: 5e-3 relative.
+MC_AUX_TOL = 1e-5
+MC_ELASTIC_REL_TOL = 5e-3
+
+
+def mc_gen(device, seed: int):
+    import torch
+
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def mc_tokens(device, seed: int, shape, vocab: int):
+    import torch
+
+    return torch.randint(0, vocab, shape, generator=mc_gen(device, seed),
+                         device=device)
+
+
+def mc_configs():
+    from kubeshare_tpu_torch.models.llama import LlamaConfig, llama3_8b
+    from kubeshare_tpu_torch.models.moe import MoeConfig
+
+    return {"tp": dataclasses.replace(llama3_8b(), layers=MC_TP_LAYERS),
+            "pp": dataclasses.replace(llama3_8b(), layers=MC_PP_LAYERS),
+            "moe": MoeConfig(**MC_MOE),
+            "elastic": LlamaConfig(**MC_ELASTIC_CFG)}
+
+
+def mc_elastic_batches(device, seed: int):
+    return [mc_tokens(device, seed + 10 + i, MC_ELASTIC_TOKENS,
+                      MC_ELASTIC_CFG["vocab"])
+            for i in range(len(MC_ELASTIC_RANKS) * MC_ELASTIC_STEPS)]
+
+
+def mc_reset(device) -> None:
+    """Zero the kernel counts and comm's stats, and the peak memory."""
+    import importlib
+
+    import torch
+
+    from kubeshare_tpu_torch.parallel import comm
+
+    attn = importlib.import_module("kubeshare_tpu_torch.ops.attention")
+    torch.cuda.synchronize()
+    for name in attn.LAUNCHES:
+        attn.LAUNCHES[name] = 0
+    comm.reset_stats()
+    torch.cuda.reset_peak_memory_stats(device)
+
+
+def mc_read(device, seconds: float, runs: int = 1) -> dict:
+    """Per-run kernel launches, comm stats, ms, and the peak memory,
+    since ``mc_reset``."""
+    import importlib
+
+    import torch
+
+    from kubeshare_tpu_torch.parallel import comm
+
+    attn = importlib.import_module("kubeshare_tpu_torch.ops.attention")
+    return {"ms": 1e3 * seconds / runs,
+            "launches": {k: v / runs for k, v in attn.LAUNCHES.items()},
+            "comm": {k: v / runs for k, v in comm.stats().items()},
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def mc_leg_tp(device, seed: int, mesh) -> dict:
+    """(a): the FSDP x TP step on ``mesh`` (one process: a mesh of one).
+    Step 0's loss and this rank's blocks of the probe gradients, then
+    MC_TP_STEPS AdamW steps timed."""
+    import torch
+
+    from kubeshare_tpu_torch.bench.kernels import MFU_VOCAB_CHUNK
+    from kubeshare_tpu_torch.models.llama import init_llama, llama_loss
+    from kubeshare_tpu_torch.parallel import make_sharded_train_step
+    from kubeshare_tpu_torch.parallel.sharding import build_param_specs
+
+    cfg = mc_configs()["tp"]
+    model = init_llama(cfg, generator=mc_gen(device, seed), device=device,
+                       trainable=True)
+    tokens = mc_tokens(device, seed + 2, MC_TP_TOKENS, cfg.vocab)
+    step, model, _ = make_sharded_train_step(
+        lambda m, t: llama_loss(m, t, vocab_chunk=MFU_VOCAB_CHUNK), model,
+        mesh, learning_rate=MC_LR)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    progress(f"rank {mesh.rank}: (a) placed")
+    loss0, grads = step.value_and_grad(tokens)
+    out = {"loss0": float(loss0),
+           "probe": {n: g.float().cpu() for n, g in zip(names, grads)
+                     if n in MC_TP_PROBE},
+           "mesh": {"shape": mesh.shape, "coords": mesh.coords},
+           "specs": {n: s for n, s in build_param_specs(model).items()
+                     if n in MC_TP_PROBE}}
+    del loss0, grads
+    mc_reset(device)
+    t0 = time.perf_counter()
+    out["losses"] = [float(step(tokens)) for _ in range(MC_TP_STEPS)]
+    torch.cuda.synchronize()
+    out.update(mc_read(device, time.perf_counter() - t0, MC_TP_STEPS))
+    return out
+
+
+def mc_pp_inputs(device, seed: int):
+    """(b)'s model (bf16, no gradients), tokens and output cotangent."""
+    import torch
+
+    from kubeshare_tpu_torch.models.llama import init_llama
+
+    cfg = mc_configs()["pp"]
+    model = init_llama(cfg, generator=mc_gen(device, seed + 3),
+                       device=device)
+    tokens = mc_tokens(device, seed + 4, MC_PP_TOKENS, cfg.vocab)
+    g = torch.randn(*MC_PP_TOKENS, cfg.dim, generator=mc_gen(
+        device, seed + 5), device=device).bfloat16()
+    return model, tokens, g
+
+
+def mc_timed_pass(device, run) -> tuple:
+    """``run()`` once for its results, then once more timed."""
+    import torch
+
+    first = run()
+    mc_reset(device)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return first, mc_read(device, time.perf_counter() - t0)
+
+
+def mc_leg_pp_one(device, seed: int) -> dict:
+    """(b) in one process: ``llama_hidden`` (remat on) and the gradients
+    of ``sum(hidden * g)`` for every layer's probe leaves."""
+    import torch
+
+    from kubeshare_tpu_torch.models.llama import llama_hidden
+
+    model, tokens, g = mc_pp_inputs(device, seed)
+    model.layers.requires_grad_()
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        hidden = llama_hidden(model, tokens, remat=True)
+        (hidden.float() * g.float()).sum().backward()
+        return {"hidden": hidden.detach().cpu(),
+                "probe": {k: torch.stack([getattr(layer, k).grad
+                                          for layer in model.layers]).cpu()
+                          for k in MC_PP_PROBE}}
+
+    first, timed = mc_timed_pass(device, run)
+    return {**first, **timed}
+
+
+def mc_leg_pp(device, seed: int, mesh) -> dict:
+    """(b) on a pp rank: this rank's block of the stacked layers, the
+    pipeline's hidden (rank 0) and the block's probe gradients."""
+    from torch import nn
+
+    from kubeshare_tpu_torch.models.llama import (
+        llama_pipeline_hidden, llama_stack_layers,
+    )
+    from kubeshare_tpu_torch.parallel import shard_stacked_params
+
+    model, tokens, g = mc_pp_inputs(device, seed)
+    block = shard_stacked_params(llama_stack_layers(model), mesh)
+    model.layers = nn.ModuleList()     # this rank keeps its block only
+    gc.collect()
+    for leaf in block.values():
+        leaf.requires_grad_()
+
+    def run():
+        for leaf in block.values():
+            leaf.grad = None
+        hidden = llama_pipeline_hidden(model, tokens, mesh,
+                                       MC_PP_MICROBATCHES,
+                                       stacked_layers=block, remat=True)
+        (hidden.float() * g.float()).sum().backward()
+        return {"hidden": hidden.detach().cpu() if mesh.rank == 0 else None,
+                "probe": {k: block[k].grad.cpu() for k in MC_PP_PROBE}}
+
+    first, timed = mc_timed_pass(device, run)
+    return {"first": block.first, **first, **timed}
+
+
+def mc_leg_moe(device, seed: int, mesh=None) -> dict:
+    """(c): MoE on this rank's experts over ``mesh`` (None: all four in
+    one process): y (rank 0), aux, the gradients of ``sum(y * g) + aux``
+    for x (rank 0), the router and this rank's experts' w_down, and each
+    token's capacity slots (fewer than top_k: a drop)."""
+    import torch
+
+    from kubeshare_tpu_torch.models.moe import (
+        _dispatch_tensors, init_moe_ffn, moe_capacity, moe_ffn_apply,
+        moe_param_spec,
+    )
+    from kubeshare_tpu_torch.parallel import shard_tensor
+
+    cfg = mc_configs()["moe"]
+    params = init_moe_ffn(cfg, mc_gen(device, seed + 6), device)
+    if mesh is not None:
+        specs = moe_param_spec()
+        params = {k: shard_tensor(v, specs[k], mesh)
+                  for k, v in params.items()}
+    for p in params.values():
+        p.requires_grad_()
+    gen = mc_gen(device, seed + 7)
+    x = torch.randn(*MC_MOE_TOKENS, cfg.dim, generator=gen,
+                    device=device).bfloat16().requires_grad_()
+    gy = torch.randn(*MC_MOE_TOKENS, cfg.dim, generator=gen,
+                     device=device).bfloat16()
+    lead = mesh is None or mesh.rank == 0
+
+    def run():
+        x.grad = None
+        for p in params.values():
+            p.grad = None
+        y, aux = moe_ffn_apply(params, x, cfg, mesh)
+        ((y.float() * gy.float()).sum() + aux).backward()
+        return {"y": y.detach().cpu() if lead else None,
+                "aux": float(aux.detach()),
+                "dx": x.grad.cpu() if lead else None,
+                "router_grad": params["router"].grad.float().cpu(),
+                "w_down_grad": params["w_down"].grad.bfloat16().cpu()}
+
+    first, timed = mc_timed_pass(device, run)
+    with torch.no_grad():
+        probs = torch.softmax(x.reshape(-1, cfg.dim).float()
+                              @ params["router"].t(), dim=-1)
+        capacity = moe_capacity(cfg, probs.shape[0])
+        dispatch, _ = _dispatch_tensors(probs, cfg, capacity)
+    return {**first, **timed, "capacity": capacity,
+            "slots": dispatch.sum(dim=(1, 2)).cpu()}
+
+
+def mc_leg_elastic(device, seed: int, memberships) -> dict:
+    """(d): an ElasticTrainer on the workload CLI's Llama through
+    ``memberships`` (resized before each but the first), MC_ELASTIC_STEPS
+    steps each on the shared global batches; None where this rank
+    idled."""
+    import torch
+
+    from kubeshare_tpu_torch.models.llama import init_llama, llama_loss
+    from kubeshare_tpu_torch.parallel import ElasticTrainer
+
+    model = init_llama(mc_configs()["elastic"],
+                       generator=mc_gen(device, seed + 8), device=device,
+                       trainable=True)
+    batches = iter(mc_elastic_batches(device, seed))
+    mc_reset(device)
+    t0 = time.perf_counter()
+    trainer = ElasticTrainer(lambda m, t: llama_loss(m, t), model,
+                             learning_rate=1e-3, ranks=memberships[0])
+    losses = []
+    for i, ranks in enumerate(memberships):
+        if i:
+            trainer.resize(ranks)
+        for _ in range(MC_ELASTIC_STEPS):
+            loss = trainer.step(next(batches))
+            losses.append(None if loss is None else float(loss))
+    torch.cuda.synchronize()
+    return {"losses": losses, "generation": trainer.generation,
+            "steps": trainer.steps, "dp": trainer.dp,
+            **mc_read(device, time.perf_counter() - t0)}
+
+
+def mc_free() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def multichip_rank(joined, seed: int) -> dict:
+    """One rank of phase 19's world (module docstring): the FSDP x TP
+    step, the pipeline trunk, MoE over ep and the elastic trainer, each
+    on this rank's part, each leg's memory freed before the next.
+    Returns CPU tensors and numbers."""
+    from kubeshare_tpu_torch.parallel import (
+        MeshPlan, factorize_devices, make_mesh,
+    )
+
+    device = joined.device
+    out = {"backend": joined.backend}
+    progress(f"rank {joined.rank}: (a) fsdp x tp")
+    out["tp"] = mc_leg_tp(device, seed, make_mesh(factorize_devices(
+        joined.world, tp_max=2, fsdp_max=2)))
+    mc_free()
+    progress(f"rank {joined.rank}: (b) pipeline")
+    out["pp"] = mc_leg_pp(device, seed, make_mesh(MeshPlan(pp=MC_PP)))
+    mc_free()
+    progress(f"rank {joined.rank}: (c) moe")
+    out["moe"] = mc_leg_moe(device, seed, make_mesh(MeshPlan(ep=MC_RANKS)))
+    mc_free()
+    progress(f"rank {joined.rank}: (d) elastic")
+    out["elastic"] = mc_leg_elastic(device, seed, MC_ELASTIC_RANKS)
+    return out
+
+
+def multichip_phase(device, seed: int, smi: str) -> dict:
+    """Phase 19 but its kernel rows (module docstring): each leg in one
+    process first, then the 4-rank world, each leg held against its one
+    process, then ``dryrun_multichip(4)``. Returns what the kernel rows
+    need: the configs, the tp plan and each rank's documents."""
+    import torch
+
+    from kubeshare_tpu_torch import entry as port_entry
+    from kubeshare_tpu_torch.bench.kernels import MFU_VOCAB_CHUNK
+    from kubeshare_tpu_torch.ops.attention import LAUNCHES
+    from kubeshare_tpu_torch.parallel import (
+        MeshPlan, factorize_devices, make_mesh, shard_tensor,
+    )
+    from kubeshare_tpu_torch.parallel.launch import run_world
+
+    def rel_err(got, want) -> float:
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1e-30)).item()
+
+    mc_cfgs = mc_configs()
+    # one process first, each leg's memory freed before the next and
+    # before the world starts
+    progress("phase 19: one process")
+    mc_one = {"tp": mc_leg_tp(device, seed, make_mesh(MeshPlan()))}
+    mc_free()
+    mc_one["pp"] = mc_leg_pp_one(device, seed)
+    mc_free()
+    mc_one["moe"] = mc_leg_moe(device, seed)
+    mc_free()
+    mc_one["elastic"] = mc_leg_elastic(device, seed, MC_ELASTIC_ONE)
+    mc_free()
+    moe_cfg = mc_cfgs["moe"]
+    progress("phase 19: one process done; the world starts")
+    t0 = time.perf_counter()
+    mc_world = run_world(multichip_rank, MC_RANKS, args=(seed,),
+                         timeout=900, device_type=device.type)
+    mc_world_s = time.perf_counter() - t0
+
+    # (a) against one process: step 0's loss, the probe gradients
+    # reassembled from each rank's blocks
+    one_tp = mc_one["tp"]
+    tp_docs = [r["tp"] for r in mc_world]
+    tp_plan = factorize_devices(MC_RANKS, tp_max=2, fsdp_max=2)
+    grad_rel = {}
+    for name in MC_TP_PROBE:
+        whole = one_tp["probe"][name]
+        # each rank's block against the same block of one process's
+        # gradient, over that whole gradient's max abs
+        grad_rel[name] = max(
+            ((d["probe"][name] - shard_tensor(
+                whole, d["specs"][name], types.SimpleNamespace(**d["mesh"])))
+             .abs().max() / whole.abs().max()).item() for d in tp_docs)
+    tp_loss_rel = max(abs(d["loss0"] - one_tp["loss0"]) / abs(
+        one_tp["loss0"]) for d in tp_docs)
+    emit({"phase": "multichip_fsdp_tp", "card": smi,
+          "config": dataclasses.asdict(mc_cfgs["tp"]),
+          "mesh": dataclasses.asdict(tp_plan), "tokens": list(MC_TP_TOKENS),
+          "vocab_chunk": MFU_VOCAB_CHUNK, "steps_timed": MC_TP_STEPS,
+          "loss0": [d["loss0"] for d in tp_docs],
+          "one_process_loss0": one_tp["loss0"], "loss_rel_err": tp_loss_rel,
+          "loss_rel_tol": SP_LOSS_REL_TOL, "grad_rel_err": grad_rel,
+          "grad_rel_tol": GRAD_REL_TOL,
+          "losses": [d["losses"] for d in tp_docs],
+          "step_ms": [d["ms"] for d in tp_docs],
+          "one_process_step_ms": one_tp["ms"],
+          "launches_per_rank_step": [d["launches"] for d in tp_docs],
+          "one_process_launches_per_step": one_tp["launches"],
+          "comm_per_rank_step": [d["comm"] for d in tp_docs],
+          "peak_bytes_per_rank": [d["peak_bytes"] for d in tp_docs],
+          "one_process_peak_bytes": one_tp["peak_bytes"],
+          "backends": [r["backend"] for r in mc_world],
+          "world_seconds": mc_world_s})
+    check(tp_loss_rel <= SP_LOSS_REL_TOL
+          and max(grad_rel.values()) <= GRAD_REL_TOL,
+          f"FSDP x TP against one process: loss {tp_loss_rel}, "
+          f"gradients {grad_rel}")
+    for r, d in enumerate(tp_docs):
+        check(all(math.isfinite(x) for x in d["losses"]),
+              f"FSDP x TP rank {r}: losses {d['losses']}")
+        check(all(d["launches"][k] == MC_TP_LAYERS for k in LAUNCHES),
+              f"FSDP x TP rank {r}: launches a step {d['launches']}, "
+              f"want {MC_TP_LAYERS} of each kernel (one a layer)")
+
+    # (b) against one process: hidden rows, each rank's layers' gradients
+    one_pp = mc_one["pp"]
+    pp_docs = [r["pp"] for r in mc_world]
+    pp_row_rel = row_rel_err(pp_docs[0]["hidden"], one_pp["hidden"])
+    per = MC_PP_LAYERS // MC_PP
+    pp_grad_rel = {k: max(rel_err(d["probe"][k], one_pp["probe"][k][
+        d["first"]:d["first"] + per]) for d in pp_docs)
+        for k in MC_PP_PROBE}
+    emit({"phase": "multichip_pipeline", "card": smi,
+          "config": dataclasses.asdict(mc_cfgs["pp"]), "pp": MC_PP,
+          "tokens": list(MC_PP_TOKENS),
+          "microbatches": MC_PP_MICROBATCHES, "remat": True,
+          "hidden_row_rel_err": pp_row_rel, "row_rel_tol": SP_ROW_REL_TOL,
+          "grad_rel_err": pp_grad_rel, "grad_rel_tol": GRAD_REL_TOL,
+          "pass_ms": [d["ms"] for d in pp_docs],
+          "one_process_pass_ms": one_pp["ms"],
+          "launches_per_rank_pass": [d["launches"] for d in pp_docs],
+          "one_process_launches_per_pass": one_pp["launches"],
+          "comm_per_rank_pass": [d["comm"] for d in pp_docs],
+          "peak_bytes_per_rank": [d["peak_bytes"] for d in pp_docs],
+          "one_process_peak_bytes": one_pp["peak_bytes"]})
+    check(pp_row_rel <= SP_ROW_REL_TOL
+          and max(pp_grad_rel.values()) <= GRAD_REL_TOL,
+          f"the pipeline against one process: rows {pp_row_rel}, "
+          f"gradients {pp_grad_rel}")
+    for r, d in enumerate(pp_docs):
+        check(all(d["launches"][k] > 0 for k in LAUNCHES),
+              f"pipeline rank {r} did not launch every kernel: "
+              f"{d['launches']}")
+
+    # (c) against one process
+    one_moe = mc_one["moe"]
+    moe_docs = [r["moe"] for r in mc_world]
+    moe_row_rel = row_rel_err(moe_docs[0]["y"], one_moe["y"])
+    moe_aux_err = max(abs(d["aux"] - one_moe["aux"]) for d in moe_docs)
+    same_slots = all(torch.equal(d["slots"], one_moe["slots"])
+                     for d in moe_docs)
+    dropped = int((one_moe["slots"] < moe_cfg.top_k).sum())
+    moe_grad_rel = {
+        "x": rel_err(moe_docs[0]["dx"], one_moe["dx"]),
+        "router": max(rel_err(d["router_grad"], one_moe["router_grad"])
+                      for d in moe_docs),
+        "w_down": max(rel_err(d["w_down_grad"], one_moe["w_down_grad"][
+            r:r + 1]) for r, d in enumerate(moe_docs))}
+    emit({"phase": "multichip_moe", "card": smi,
+          "config": dataclasses.asdict(moe_cfg), "ep": MC_RANKS,
+          "x": [*MC_MOE_TOKENS, moe_cfg.dim],
+          "capacity": one_moe["capacity"],
+          "dropped_assignments": int((moe_cfg.top_k - one_moe["slots"])
+                                     .sum()),
+          "tokens_with_a_drop": dropped, "same_drops": same_slots,
+          "y_row_rel_err": moe_row_rel, "row_rel_tol": SP_ROW_REL_TOL,
+          "aux": [d["aux"] for d in moe_docs],
+          "one_process_aux": one_moe["aux"], "aux_err": moe_aux_err,
+          "aux_tol": MC_AUX_TOL, "grad_rel_err": moe_grad_rel,
+          "grad_rel_tol": GRAD_REL_TOL,
+          "pass_ms": [d["ms"] for d in moe_docs],
+          "one_process_pass_ms": one_moe["ms"],
+          "comm_per_rank_pass": [d["comm"] for d in moe_docs],
+          "peak_bytes_per_rank": [d["peak_bytes"] for d in moe_docs],
+          "one_process_peak_bytes": one_moe["peak_bytes"]})
+    check(moe_row_rel <= SP_ROW_REL_TOL and moe_aux_err <= MC_AUX_TOL
+          and same_slots and max(moe_grad_rel.values()) <= GRAD_REL_TOL,
+          f"MoE over ep against one process: rows {moe_row_rel}, aux "
+          f"{moe_aux_err}, same drops {same_slots}, grads {moe_grad_rel}")
+
+    # (d) the elastic trajectory
+    el_docs = [r["elastic"] for r in mc_world]
+    one_losses = mc_one["elastic"]["losses"]
+    el_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        el_docs[0]["losses"], one_losses))
+    emit({"phase": "multichip_elastic", "card": smi,
+          "config": MC_ELASTIC_CFG, "tokens": list(MC_ELASTIC_TOKENS),
+          "memberships": [list(m) for m in MC_ELASTIC_RANKS],
+          "losses": [d["losses"] for d in el_docs],
+          "one_process_losses": one_losses, "loss_rel_err": el_rel,
+          "loss_rel_tol": MC_ELASTIC_REL_TOL,
+          "generation": [d["generation"] for d in el_docs],
+          "steps": [d["steps"] for d in el_docs],
+          "run_ms": [d["ms"] for d in el_docs],
+          "one_process_run_ms": mc_one["elastic"]["ms"],
+          "launches_per_rank": [d["launches"] for d in el_docs],
+          "comm_per_rank": [d["comm"] for d in el_docs]})
+    check(el_rel <= MC_ELASTIC_REL_TOL
+          and all(d["generation"] == 2 for d in el_docs)
+          and el_docs[2]["losses"][2:4] == [None, None],
+          f"elastic 4 -> 2 -> 4: {el_docs} against {one_losses}")
+    for r, d in enumerate(el_docs):
+        check(all(d["launches"][k] > 0 for k in LAUNCHES),
+              f"elastic rank {r} did not launch every kernel: "
+              f"{d['launches']}")
+
+    # (e) the dry run on the card
+    progress("phase 19: dryrun_multichip(4)")
+    t0 = time.perf_counter()
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        port_entry.dryrun_multichip(MC_RANKS, device=device)
+    dry = captured.getvalue().strip().splitlines()
+    emit({"phase": "multichip_dryrun", "card": smi, "tail": dry[-1],
+          "lines": dry[:-1], "seconds": time.perf_counter() - t0})
+    check("crossproc=ok" in dry[-1], f"dryrun_multichip(4): {dry}")
+
+    return {"cfgs": mc_cfgs, "tp_plan": tp_plan, "tp": tp_docs,
+            "pp": pp_docs}
 
 
 def main() -> int:
@@ -1771,16 +2319,11 @@ def main() -> int:
                       f"ring rank {r}: no lse cotangent reached the "
                       f"backward: {seen}")
 
-    # the three kernels at the ring's hop shape (an earlier shard: full)
-    # and the Ulysses core (the full sequence of a head slice: causal)
-    sp_kernel_rows = []
-    t_local = SP_SEQ // SP_RANKS
-    hkv_slice = MFU_CONFIG.num_kv_heads // SP_RANKS
-    for suffix, shape, causal in (
-            ("_ring_hop", (1, MFU_CONFIG.num_heads, MFU_CONFIG.num_kv_heads,
-                           t_local, t_local, 64), False),
-            ("_ulysses", (1, MFU_CONFIG.num_heads // SP_RANKS, hkv_slice,
-                          SP_SEQ, SP_SEQ, 64), True)):
+    def flash_kernel_rows(suffix, shape, causal, launched):
+        """The three kernels at ``shape`` (bf16, an lse cotangent) against
+        their plain versions, and timed in turns with SDPA; one row of
+        the kernels line each, with ``launched`` (by kernel) as its
+        launches. Emits a ``sp_kernels`` line."""
         batch, heads, kv_heads, t_q, t_k, head_dim = shape
         q, do = (randn(batch, heads, t_q, head_dim, dtype=torch.bfloat16)
                  for _ in range(2))
@@ -1822,9 +2365,7 @@ def main() -> int:
             q, k, v, causal), 1, warmup=0, batches=1)
         plain_bwd_ms = cuda_ms(lambda: flash_backward_reference(
             q, k, v, out, lse, do, g_lse, causal), 1, warmup=0, batches=1)
-        impl = "ring" if suffix == "_ring_hop" else "ulysses"
-        launched = {k: sum(r[impl]["launches"][k] for r in sp_world)
-                    for k in LAUNCHES}
+        rows = []
         for name, kind, err, plain_ms, library in (
                 ("flash_fwd", "fwd", fwd_err, plain_fwd_ms, "sdpa"),
                 ("flash_bwd_dq", "bwd_dq", bwd_abs["dq"], plain_bwd_ms,
@@ -1834,7 +2375,7 @@ def main() -> int:
                  plain_bwd_ms, "sdpa_bwd")):
             bound_ms, bound_by = flash_bound_ms(shape, "bfloat16", causal,
                                                 0, kind)
-            sp_kernel_rows.append({
+            rows.append({
                 "name": name + suffix, "shape": list(shape),
                 "route": "cuda",
                 "source": ("kubeshare_tpu_torch/ops/csrc/flash_fwd.cu"
@@ -1844,7 +2385,6 @@ def main() -> int:
                              "bwd_dq": "kubeshare_tpu/ops/attention.py:300",
                              "bwd_dkv": "kubeshare_tpu/ops/attention.py:348"
                              }[kind],
-                # every rank's launches in the timed sp = 4 steps
                 "launches": launched[name],
                 "max_abs_err": err, "ms": ms[name], "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1860,6 +2400,22 @@ def main() -> int:
         del (q, k, v, kr, vr, do, g_lse, out, lse, ref_out, ref_lse, got,
              want, bwd_in)
         torch.cuda.empty_cache()
+        return rows
+
+    # the three kernels at the ring's hop shape (an earlier shard: full)
+    # and the Ulysses core (the full sequence of a head slice: causal);
+    # launches: every rank's in the timed sp = 4 steps
+    sp_kernel_rows = []
+    t_local = SP_SEQ // SP_RANKS
+    hkv_slice = MFU_CONFIG.num_kv_heads // SP_RANKS
+    for suffix, shape, causal, impl in (
+            ("_ring_hop", (1, MFU_CONFIG.num_heads, MFU_CONFIG.num_kv_heads,
+                           t_local, t_local, 64), False, "ring"),
+            ("_ulysses", (1, MFU_CONFIG.num_heads // SP_RANKS, hkv_slice,
+                          SP_SEQ, SP_SEQ, 64), True, "ulysses")):
+        launched = {k: sum(r[impl]["launches"][k] for r in sp_world)
+                    for k in LAUNCHES}
+        sp_kernel_rows += flash_kernel_rows(suffix, shape, causal, launched)
 
     # the CLI's gang path: two processes through the gang env, the two
     # gangs at once (their start-up, not the card, takes the time)
@@ -1893,6 +2449,35 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 19. the reference's multi-device paths ------------------------
+    mark("19_multichip")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mc = multichip_phase(device, args.seed, smi)
+    mc_cfgs, tp_plan, tp_docs, pp_docs = (mc[k] for k in ("cfgs", "tp_plan",
+                                                          "tp", "pp"))
+
+    # the three kernels at the shapes a tp rank and a pipeline stage give
+    # them; launches: every rank's in the timed steps of (a) and pass of
+    # (b)
+    hd = mc_cfgs["tp"].dim // mc_cfgs["tp"].num_heads
+    t_tp = MC_TP_TOKENS[1] - 1
+    mc_kernel_rows = []
+    for suffix, shape, docs in (
+            ("_tp", (MC_TP_TOKENS[0] // tp_plan.fsdp // tp_plan.dp,
+                     mc_cfgs["tp"].num_heads // tp_plan.tp,
+                     mc_cfgs["tp"].num_kv_heads // tp_plan.tp, t_tp, t_tp,
+                     hd), tp_docs),
+            ("_pp", (MC_PP_TOKENS[0] // MC_PP_MICROBATCHES,
+                     mc_cfgs["pp"].num_heads, mc_cfgs["pp"].num_kv_heads,
+                     MC_PP_TOKENS[1], MC_PP_TOKENS[1], hd), pp_docs)):
+        runs = MC_TP_STEPS if suffix == "_tp" else 1
+        launched = {k: round(sum(d["launches"][k] for d in docs) * runs)
+                    for k in LAUNCHES}
+        mc_kernel_rows += flash_kernel_rows(suffix, shape, True, launched)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     mark("end")
     marks = list(phase_started.items())
     emit({"phase": "timing",
@@ -1911,7 +2496,8 @@ def main() -> int:
     emit({"kernels": [fwd_rows[""], bwd_rows["flash_bwd_dq"],
                       bwd_rows["flash_bwd_dkv"], fwd_rows["_d32"],
                       bwd_rows["flash_bwd_dq_d32"],
-                      bwd_rows["flash_bwd_dkv_d32"], *sp_kernel_rows]})
+                      bwd_rows["flash_bwd_dkv_d32"], *sp_kernel_rows,
+                      *mc_kernel_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

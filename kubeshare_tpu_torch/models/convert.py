@@ -95,6 +95,66 @@ def llama_to_jax(model: Llama, grads: bool = False) -> Dict:
     return tree
 
 
+def stacked_layers_from_jax(stacked: Mapping, device: DeviceLike = None,
+                            requires_grad: bool = False
+                            ) -> Dict[str, torch.Tensor]:
+    """The port's stacked trunk (``llama_stack_layers``: a flat dict of
+    leaves [L, ...], matmul weights [L, out, in]) from the reference's
+    (``kubeshare_tpu.models.llama.llama_stack_layers``: the layer tree
+    with leaves [L, ...], matmul weights [L, in, out]), as float32 leaf
+    tensors."""
+    device = resolve_device(device)
+
+    def leaf(a, swap):
+        a = np.asarray(a, np.float32)
+        a = np.ascontiguousarray(a.swapaxes(-1, -2) if swap else a)
+        return torch.tensor(a, device=device).requires_grad_(requires_grad)
+
+    return {"attn_norm": leaf(stacked["attn_norm"]["scale"], False),
+            "mlp_norm": leaf(stacked["mlp_norm"]["scale"], False),
+            **{name: leaf(stacked[name], True) for name in _LAYER_MATS}}
+
+
+def stacked_layers_to_jax(stacked: Mapping[str, torch.Tensor],
+                          grads: bool = False) -> Dict:
+    """The reference's stacked layer tree (numpy float32, [L, in, out])
+    of the port's stacked leaves or, with ``grads=True``, of their
+    gradients (zeros where a leaf has none)."""
+
+    def leaf(t, swap):
+        if grads:
+            t = t.grad if t.grad is not None else torch.zeros_like(t)
+        a = t.detach().float().cpu().numpy()
+        return np.ascontiguousarray(a.swapaxes(-1, -2) if swap else a)
+
+    return {"attn_norm": {"scale": leaf(stacked["attn_norm"], False)},
+            "mlp_norm": {"scale": leaf(stacked["mlp_norm"], False)},
+            **{name: leaf(stacked[name], True) for name in _LAYER_MATS}}
+
+
+# MoE weights: the reference's router [D, E], w_gate / w_up [E, D, H] and
+# w_down [E, H, D]; the port's the same with the last two dims swapped.
+_MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
+def moe_from_jax(params: Mapping, device: DeviceLike = None
+                 ) -> Dict[str, torch.Tensor]:
+    """The port's MoE weights (``models.moe``, float32) from the
+    reference tree's."""
+    device = resolve_device(device)
+    return {name: torch.tensor(np.ascontiguousarray(
+                np.asarray(params[name], np.float32).swapaxes(-1, -2)),
+                device=device) for name in _MOE_LEAVES}
+
+
+def moe_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The reference's MoE tree (numpy float32) of the port's weights
+    (or of any tensors in their layout, such as their gradients)."""
+    return {name: np.ascontiguousarray(
+                params[name].detach().float().cpu().numpy().swapaxes(-1, -2))
+            for name in _MOE_LEAVES}
+
+
 # ---- the workload models -------------------------------------------------
 #
 # ``flat`` names the dense layer that follows a flatten, with the

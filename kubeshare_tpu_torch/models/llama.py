@@ -25,13 +25,28 @@ Training: ``llama_loss`` (dense, or vocab-chunked through
 ``ops.xent.chunked_linear_xent``) with ``remat`` per block; the
 optimizer step is ``models/train.py``. ``attn_fn`` swaps the attention
 core, and ``make_llama_sp_loss`` runs the trunk sequence-parallel
-through it (``parallel/``); the pipeline trunk is not ported yet
-(ROADMAP Queue 1).
+through it (``parallel/``). ``llama_pipeline_hidden`` runs the blocks as
+a pipeline over the ``pp`` ranks (``parallel/pipeline.py``).
+
+Tensor parallelism and fully sharded weights: a model placed by
+``parallel.shard_params`` holds only this rank's block of each weight
+and records the layout in ``model.shards`` (``parallel.sharding.
+LlamaShards``; None for a whole model, where every path below is the
+one-process path, tensor for tensor). Its blocks then run the heads and
+hidden units this tp rank holds (the head counts come from the weights'
+shapes), with Megatron's ``copy_to`` before each column-parallel pair
+and ``reduce_from`` after each row-parallel product; the embedding is a
+masked lookup of the rank's vocabulary rows, summed over tp; the loss is
+the vocab-parallel cross-entropy (its row max and sum of exponentials
+reduced over tp, the target logit taken from the rank that owns it),
+dense or through the chunked loss. Weights split over fsdp are gathered
+around each product (``parallel/fsdp.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -130,6 +145,8 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.final_norm = _weight(final_norm, trainable)
         self.lm_head = _weight(lm_head, trainable)
+        # the layout on a rank mesh (parallel.shard_params); None: whole
+        self.shards = None
 
     @property
     def device(self) -> torch.device:
@@ -207,9 +224,23 @@ def _matmul(x: torch.Tensor, w, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), w.to(dtype))
 
 
+def _project(shards, name: str, x: torch.Tensor, w,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``_matmul`` of leaf ``name``, gathered around the product when
+    the layout splits it over fsdp."""
+    if shards is not None and name in shards.fsdp_dims:
+        return shards.project(name, x, w, dtype)
+    return _matmul(x, w, dtype)
+
+
+def _whole(shards, name: str, w: torch.Tensor) -> torch.Tensor:
+    return w if shards is None else shards.whole(name, w)
+
+
 def llama_block(layer: LlamaBlock, x: torch.Tensor, positions: torch.Tensor,
                 cfg: LlamaConfig, use_flash: Optional[bool] = None,
-                attn_fn: Optional[Callable] = None) -> torch.Tensor:
+                attn_fn: Optional[Callable] = None,
+                shards=None) -> torch.Tensor:
     """One pre-norm transformer block: [B, T, dim] -> [B, T, dim].
 
     ``attn_fn`` overrides the causal attention core: a callable
@@ -217,14 +248,19 @@ def llama_block(layer: LlamaBlock, x: torch.Tensor, positions: torch.Tensor,
     the window baked in, which carries the window it bakes as
     ``.window``: the hook the sequence-parallel trunks use to swap in
     ring or Ulysses attention (``make_llama_sp_loss``). A window that
-    disagrees with ``cfg.window`` either way is refused."""
+    disagrees with ``cfg.window`` either way is refused. ``shards`` is
+    the model's layout on a rank mesh (module docstring); ``layer`` may
+    be any object with the block's weights as attributes."""
     dtype = cfg.torch_dtype
     batch, seq = x.shape[0], x.shape[1]
     hd = cfg.dim // cfg.num_heads
-    h = rmsnorm(layer.attn_norm, x)
-    q = _matmul(h, layer.wq, dtype).view(batch, seq, cfg.num_heads, hd)
-    k = _matmul(h, layer.wk, dtype).view(batch, seq, cfg.num_kv_heads, hd)
-    v = _matmul(h, layer.wv, dtype).view(batch, seq, cfg.num_kv_heads, hd)
+    h = rmsnorm(_whole(shards, "attn_norm", layer.attn_norm), x)
+    if shards is not None:
+        h = shards.enter(h)
+    # this rank's heads: all of them unless tp splits them
+    q = _project(shards, "wq", h, layer.wq, dtype).view(batch, seq, -1, hd)
+    k = _project(shards, "wk", h, layer.wk, dtype).view(batch, seq, -1, hd)
+    v = _project(shards, "wv", h, layer.wv, dtype).view(batch, seq, -1, hd)
     q = _rope(q.transpose(1, 2), positions, cfg.rope_theta)   # [B, H, T, D]
     k = _rope(k.transpose(1, 2), positions, cfg.rope_theta)
     v = v.transpose(1, 2).contiguous()
@@ -239,13 +275,31 @@ def llama_block(layer: LlamaBlock, x: torch.Tensor, positions: torch.Tensor,
     else:
         out = mha(q, k, v, causal=True, use_flash=use_flash,
                   window=cfg.window)
-    out = out.transpose(1, 2).reshape(batch, seq, cfg.num_heads * hd)
-    x = x + _matmul(out, layer.wo, dtype)
+    out = out.transpose(1, 2).reshape(batch, seq, -1)
+    out = _project(shards, "wo", out, layer.wo, dtype)
+    x = x + (out if shards is None else shards.leave(out))
 
-    h = rmsnorm(layer.mlp_norm, x)
-    gate = F.silu(_matmul(h, layer.w_gate, dtype))
-    up = _matmul(h, layer.w_up, dtype)
-    return x + _matmul(gate * up, layer.w_down, dtype)
+    h = rmsnorm(_whole(shards, "mlp_norm", layer.mlp_norm), x)
+    if shards is not None:
+        h = shards.enter(h)
+    gate = F.silu(_project(shards, "w_gate", h, layer.w_gate, dtype))
+    up = _project(shards, "w_up", h, layer.w_up, dtype)
+    out = _project(shards, "w_down", gate * up, layer.w_down, dtype)
+    return x + (out if shards is None else shards.leave(out))
+
+
+def _embed(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings [B, T, dim] in cfg.dtype; under tp a masked
+    lookup of this rank's vocabulary rows, summed over the tp ranks."""
+    shards = model.shards
+    table = _whole(shards, "embed", model.embed).to(model.cfg.torch_dtype)
+    if shards is None or shards.tp == 1:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens - shards.tp_rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)]
+    return shards.leave(torch.where(mine[..., None], x, 0.0))
 
 
 def llama_hidden(model: Llama, tokens: torch.Tensor,
@@ -261,17 +315,18 @@ def llama_hidden(model: Llama, tokens: torch.Tensor,
     same bits either way. The reference keeps each block's matmul
     outputs (``dots_with_no_batch_dims_saveable``); here the whole block
     is recomputed. ``attn_fn`` as in ``llama_block``."""
-    cfg = model.cfg
+    cfg, shards = model.cfg, model.shards
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = model.embed.to(cfg.torch_dtype)[tokens]
+    x = _embed(model, tokens)
     for layer in model.layers:
         if remat:
             x = checkpoint(llama_block, layer, x, positions, cfg, use_flash,
-                           attn_fn, use_reentrant=False)
+                           attn_fn, shards, use_reentrant=False)
         else:
-            x = llama_block(layer, x, positions, cfg, use_flash, attn_fn)
-    return rmsnorm(model.final_norm, x)
+            x = llama_block(layer, x, positions, cfg, use_flash, attn_fn,
+                            shards)
+    return rmsnorm(_whole(shards, "final_norm", model.final_norm), x)
 
 
 def llama_apply(model: Llama, tokens: torch.Tensor,
@@ -280,9 +335,47 @@ def llama_apply(model: Llama, tokens: torch.Tensor,
                 remat: bool = False,
                 attn_fn: Optional[Callable] = None) -> torch.Tensor:
     """tokens [B, T] -> float32 logits [B, T, vocab] (the lm head's
-    output in cfg.dtype, then cast)."""
+    output in cfg.dtype, then cast); under tp each rank's vocabulary
+    slice, gathered."""
     x = llama_hidden(model, tokens, positions, use_flash, remat, attn_fn)
-    return _matmul(x, model.lm_head, model.cfg.torch_dtype).float()
+    logits = _local_logits(model, x)
+    shards = model.shards
+    if shards is not None and shards.tp > 1:
+        from ..parallel import comm
+
+        logits = comm.all_gather_cat(logits, shards.tp_group, dim=-1)
+    return logits
+
+
+def _local_logits(model: Llama, hidden: torch.Tensor) -> torch.Tensor:
+    """Float32 logits of this rank's vocabulary rows (all of them
+    without tp)."""
+    shards = model.shards
+    if shards is not None:
+        hidden = shards.enter(hidden)
+    return _project(shards, "lm_head", hidden, model.lm_head,
+                    model.cfg.torch_dtype).float()
+
+
+def _vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                         shards) -> torch.Tensor:
+    """Mean cross entropy of float32 logits [N, V / tp] holding this tp
+    rank's vocabulary slice: the row max and the sum of exponentials
+    reduced over tp, the label's logit from the rank that owns it. The
+    max only shifts the exponentials (no gradient); the sums leave the
+    tp region (``reduce_from``), since every rank computes the same
+    loss from them."""
+    from ..parallel import comm
+
+    rows = logits.shape[-1]
+    m = comm.all_reduce_(logits.detach().amax(dim=-1), shards.tp_group,
+                         op="max")
+    s = shards.leave(torch.exp(logits - m[:, None]).sum(dim=-1))
+    local = labels - shards.tp_rank * rows
+    mine = (local >= 0) & (local < rows)
+    gold = torch.gather(logits, -1, local.clamp(0, rows - 1)[:, None])[:, 0]
+    gold = shards.leave(torch.where(mine, gold, 0.0))
+    return torch.mean(torch.log(s) + m - gold)
 
 
 def _next_token_loss(model: Llama, inputs: torch.Tensor,
@@ -295,19 +388,83 @@ def _next_token_loss(model: Llama, inputs: torch.Tensor,
             "quantized weights are inference-only (models/quant.py): int8 "
             "weights cannot be trained; keep the float model for llama_loss"
         )
+    shards = model.shards
+    tp = shards is not None and shards.tp > 1
+    hidden = llama_hidden(model, inputs, positions, use_flash, remat,
+                          attn_fn)
+    n = hidden.shape[0] * hidden.shape[1]
     if vocab_chunk > 0:
         dtype = model.cfg.torch_dtype
-        hidden = llama_hidden(model, inputs, positions, use_flash, remat,
-                              attn_fn)
-        n = hidden.shape[0] * hidden.shape[1]
+        head = _whole(shards, "lm_head", model.lm_head)
+        if shards is not None:
+            hidden = shards.enter(hidden)
         return chunked_linear_xent(
             hidden.reshape(n, -1).to(dtype),
-            model.lm_head.to(dtype).t(),            # [dim, vocab]
+            head.to(dtype).t(),                     # [dim, vocab (/ tp)]
             targets.reshape(n),
             vocab_chunk,
+            group=shards.tp_group if tp else None,
+            vocab_start=shards.tp_rank * head.shape[0] if tp else 0,
         )
-    logits = llama_apply(model, inputs, positions, use_flash, remat, attn_fn)
+    logits = _local_logits(model, hidden)
+    if tp:
+        return _vocab_parallel_xent(logits.reshape(n, -1),
+                                    targets.reshape(n), shards)
     return cross_entropy_loss(logits, targets)
+
+
+# a block's weights, in LlamaBlock's order
+LAYER_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+                "w_up", "w_down")
+
+
+def llama_stack_layers(model: Llama) -> Dict[str, torch.Tensor]:
+    """The trunk's per-layer weights stacked into pipeline stages
+    (leaves [layers, ...]). Do this ONCE at setup and keep this rank's
+    block (``parallel.shard_stacked_params``): stacking inside the step
+    would copy every trunk weight on every call."""
+    from ..parallel.pipeline import stack_stage_params
+
+    return stack_stage_params([{name: getattr(layer, name)
+                                for name in LAYER_LEAVES}
+                               for layer in model.layers])
+
+
+def llama_pipeline_hidden(model: Llama, tokens: torch.Tensor, mesh,
+                          num_microbatches: int,
+                          use_flash: Optional[bool] = None,
+                          stacked_layers=None,
+                          remat: bool = True) -> torch.Tensor:
+    """The trunk with its blocks run as a pipeline over the mesh's
+    ``pp`` ranks (``parallel/pipeline.py``): the layers are the stages
+    (``cfg.layers`` may exceed the pp size: each rank then chains a
+    contiguous block of layers), microbatched over the batch dim. The
+    embedding and the final norm run on every rank, outside the
+    pipeline. Same math as ``llama_hidden`` (``llama_block`` is shared).
+    The reference's ``(params, tokens, cfg, mesh, ...)`` is ``(model,
+    tokens, mesh, ...)`` here: the model carries its config.
+
+    Pass ``stacked_layers`` (``llama_stack_layers`` at setup, placed with
+    ``shard_stacked_params``) in training loops; None stacks the model's
+    layers on every call."""
+    from ..parallel.pipeline import pipeline_apply
+
+    if model.shards is not None:
+        raise ValueError("the pipeline runs whole layers, not a model "
+                         "placed over tp or fsdp")
+    cfg = model.cfg
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = model.embed.to(cfg.torch_dtype)[tokens]
+    if stacked_layers is None:
+        stacked_layers = llama_stack_layers(model)
+
+    def stage(layer, xb):
+        return llama_block(SimpleNamespace(**layer), xb, positions, cfg,
+                           use_flash)
+
+    x = pipeline_apply(stage, stacked_layers, x, num_microbatches, mesh,
+                       remat=remat)
+    return rmsnorm(model.final_norm, x)
 
 
 def llama_loss(model: Llama, tokens: torch.Tensor, vocab_chunk: int = 0,
@@ -501,6 +658,9 @@ def llama_apply_cached(
     absolute positions and raises (CPU) or fails a device assert (CUDA)
     past the end, where the reference would clamp."""
     cfg = model.cfg
+    if model.shards is not None:
+        raise ValueError("the KV-cache path runs a whole model, not one "
+                         "placed on a rank mesh")
     dtype = cfg.torch_dtype
     batch, seq = tokens.shape
     hd = cfg.dim // cfg.num_heads

@@ -14,6 +14,15 @@ A ragged last tile is clamped to end at the vocab, as
 ``jax.lax.dynamic_slice`` clamps it: its columns that the previous tile
 already covered are masked in both passes, so the weight is never padded
 or copied.
+
+Vocab-parallel (``group``, port-only: the reference's GSPMD splits the
+scan's product over its tp axis): ``w`` holds the vocabulary columns
+``[vocab_start, vocab_start + V_local)`` of this rank of ``group``. The
+forward walks the local tiles, then reduces the row max (max) and the
+rescaled sum of exponentials and the label's logit (sum) over the group
+in one call each; the backward walks the local tiles against the global
+normaliser and returns this rank's share of ``dHidden`` (the caller sums
+it over the group, ``comm.copy_to``) and its columns' ``dW``.
 """
 
 from __future__ import annotations
@@ -60,8 +69,9 @@ def _chunk_logits(hidden: torch.Tensor, w: torch.Tensor, chunk: int, i: int):
 class _ChunkedLinearXent(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, hidden, w, labels, chunk):
+    def forward(ctx, hidden, w, labels, chunk, group, vocab_start):
         n = hidden.shape[0]
+        labels = labels - vocab_start
         tile, steps, _ = _tile_plan(w.shape[1], chunk, n)
         m = torch.full((n,), float("-inf"), device=hidden.device)
         s = torch.zeros(n, device=hidden.device)
@@ -76,6 +86,13 @@ class _ChunkedLinearXent(torch.autograd.Function):
             hit = (cols[None, :] == labels[:, None]) & owned[None, :]
             label_logit = label_logit + torch.where(hit, logits, 0.0).sum(-1)
             m = m_new
+        if group is not None:
+            from ..parallel import comm
+
+            m_all = comm.all_reduce_(m.clone(), group, op="max")
+            sums = torch.stack([s * torch.exp(m - m_all), label_logit])
+            s, label_logit = comm.all_reduce_(sums, group)
+            m = m_all
         logz = m + torch.log(s)
         ctx.save_for_backward(hidden, w, labels, logz)
         ctx.chunk = chunk
@@ -105,11 +122,12 @@ class _ChunkedLinearXent(torch.autograd.Function):
             # add keeps what their owner tile wrote
             dw[:, start:start + tile] += matmul_f32(hidden.transpose(0, 1),
                                                     dlog_c)
-        return dh.to(hidden.dtype), dw.to(w.dtype), None, None
+        return dh.to(hidden.dtype), dw.to(w.dtype), None, None, None, None
 
 
 def chunked_linear_xent(hidden: torch.Tensor, w: torch.Tensor,
-                        labels: torch.Tensor, chunk: int = 0) -> torch.Tensor:
+                        labels: torch.Tensor, chunk: int = 0, group=None,
+                        vocab_start: int = 0) -> torch.Tensor:
     """Mean cross-entropy of ``softmax(hidden @ w)`` against ``labels``
     without materialising the logits.
 
@@ -118,5 +136,9 @@ def chunked_linear_xent(hidden: torch.Tensor, w: torch.Tensor,
     labels: [N] integers in [0, V)
     chunk:  vocab tile width; V need not divide it. <= 0 sizes it by N
             (see ``_tile_plan``).
+    group, vocab_start: vocab-parallel (module docstring): ``w`` holds
+            columns ``[vocab_start, vocab_start + V)`` of the vocabulary
+            split over ``group``; ``labels`` are global ids.
     """
-    return _ChunkedLinearXent.apply(hidden, w, labels, chunk)
+    return _ChunkedLinearXent.apply(hidden, w, labels, chunk, group,
+                                    vocab_start)

@@ -20,7 +20,19 @@ Differentiable, each a ``torch.autograd.Function``:
   concatenated along ``concat_dim`` in rank order. Its backward is the
   reverse all-to-all.
 - ``all_reduce(x, group)``: the sum over the group; its backward sums
-  the gradients (every rank's output feeds the objective).
+  the gradients (every rank's output feeds the objective: sequence
+  parallelism's partial losses).
+- ``copy_to(x, group)`` and ``reduce_from(x, group)``: Megatron's pair
+  for a region whose ranks each hold a part of one sum. ``copy_to`` is
+  the identity forward and sums the gradients backward (x replicated
+  into the region, each rank's use a part of x's gradient);
+  ``reduce_from`` sums forward and is the identity backward (a
+  row-parallel product's partial outputs, after which every rank
+  computes the SAME objective, so each part's gradient is that
+  objective's gradient, once; ``all_reduce`` would give it n times).
+- ``reduce_scatter(x, group, dim)``: the sum over the group, of which
+  this rank keeps slice ``rank`` of n along ``dim``, in one all-to-all;
+  its backward is the all-gather of the slices.
 
 In place, not differentiable: ``all_reduce_`` (sum or max) and
 ``broadcast_``; and ``barrier`` and ``destroy``.
@@ -279,6 +291,51 @@ class _AllReduce(torch.autograd.Function):
         return all_reduce_(g.clone(), ctx.group), None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _reduce_scatter(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    # row j of [n, *slice] goes to rank j; row i comes from rank i
+    chunks = torch.stack(torch.chunk(x, n, dim=dim))
+    return _all_to_all(chunks, group, 0, 0).sum(0)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        gathered = _all_gather(g.contiguous(), ctx.group)
+        return torch.cat(list(gathered.unbind(0)), dim=ctx.dim), None, None
+
+
 def ppermute(x: torch.Tensor, group: Group, shift: int = 1) -> torch.Tensor:
     return _PPermute.apply(x, group, shift)
 
@@ -294,3 +351,26 @@ def all_to_all(x: torch.Tensor, group: Group, split_dim: int,
 
 def all_reduce(x: torch.Tensor, group: Group = None) -> torch.Tensor:
     return _AllReduce.apply(x, group)
+
+
+def copy_to(x: torch.Tensor, group: Group) -> torch.Tensor:
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: Group) -> torch.Tensor:
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def reduce_scatter(x: torch.Tensor, group: Group, dim: int = 0
+                   ) -> torch.Tensor:
+    return _ReduceScatter.apply(x, group, dim)
+
+
+def all_gather_cat(x: torch.Tensor, group: Group, dim: int = 0
+                   ) -> torch.Tensor:
+    """Every rank's x concatenated along ``dim`` in rank order (the
+    inverse of keeping slice ``rank``); its backward keeps this rank's
+    slice of the gradient's sum over the group (``reduce_scatter``)."""
+    if group_size(group) == 1:
+        return x
+    return torch.cat(list(all_gather(x, group).unbind(0)), dim=dim)

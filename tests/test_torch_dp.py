@@ -129,30 +129,40 @@ def test_sp_and_dp_compose_as_in_the_reference():
 
 
 def test_unported_axes_are_refused_and_fsdp_1_is_not():
+    """Every axis of the reference's mesh is ported now: only an axis no
+    mesh has is refused, and the reference's default fsdp specs on a
+    mesh whose fsdp axis is 1 split nothing."""
     import torch
 
     from kubeshare_tpu_torch.parallel import sharding
 
-    class Fake:
-        shape = {"dp": 1, "pp": 1, "fsdp": 2, "sp": 1, "tp": 1, "ep": 1}
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sharding.check_mesh(Fake())
+    mesh = make_mesh(MeshPlan())
+    sharding.check_specs({"w": sharding.P("fsdp", "tp"),
+                          "b": sharding.P(("dp", "fsdp"))}, mesh)
+    with pytest.raises(ValueError, match="mesh axes"):
+        sharding.check_specs({"w": sharding.P("model")}, mesh)
     model = torch.nn.Linear(2, 2)
     step, same, opt = make_sharded_train_step(
-        lambda m, x: m(x).pow(2).mean(), model, make_mesh(MeshPlan()),
-        fsdp=True)
+        lambda m, x: m(x).pow(2).mean(), model, mesh, fsdp=True)
     assert same is model and isinstance(opt, torch.optim.AdamW)
     assert float(step(torch.ones(4, 2))) > 0
 
 
 def test_a_weight_layout_is_refused_not_ignored():
+    """A layout that splits a weight only a Llama's forward can run
+    split is refused, before any collective."""
     import torch
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    from kubeshare_tpu_torch.parallel.mesh import Mesh
+    from kubeshare_tpu_torch.parallel.sharding import P
+
+    plan = MeshPlan(tp=2)
+    mesh = Mesh(plan, 0, {axis: None for axis in plan.axis_names})
+    with pytest.raises(ValueError, match="only a Llama"):
         make_sharded_train_step(lambda m, x: m(x).sum(),
-                                torch.nn.Linear(2, 2), make_mesh(MeshPlan()),
-                                param_specs={"weight": None})
+                                torch.nn.Linear(2, 2), mesh,
+                                param_specs={"weight": P("tp", None),
+                                             "bias": P()})
 
 
 def test_a_killed_members_report_says_where_its_log_stopped():
