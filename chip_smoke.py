@@ -8,10 +8,17 @@ nonzero and prints no result:
 1. device: the card, torch/CUDA versions, the kernels' build (nvcc, at
    first use, from csrc/ in this checkout, both libraries at once).
 2. kernel: the CUDA flash-attention forward against its plain PyTorch
-   version on the card, out and lse, at the Llama-3-8B shape, at edge
-   shapes and at head dim 32 (the workload CLI's Llama step, entry()'s
-   forward, a ragged window); at the 8B shape and the two head-dim-32
-   ones the kernel and SDPA timed in turns over several rounds.
+   version on the card, out and lse, bit-identical on a second launch,
+   at the Llama-3-8B shape, at edge shapes, at head dim 32 (the workload
+   CLI's Llama step, entry()'s forward, a ragged window) and at the
+   reference's dry-run head dims: 16 (bf16 and float32, native), 8
+   (float32, padded to 16) and 96 (bf16, padded to 128), both at
+   (1, 4, 2, 8192, 8192, D) and at the shapes phase 19 (e)'s dry run
+   gives the kernels; out held absolutely, and row by row relative to
+   its norm where Tk >= 2048; at the 8B shape, the two head-dim-32 ones
+   and the four small-head-dim ones at (1, 4, 2, 8192, 8192, D) the
+   kernel and SDPA timed in turns over several rounds (the padding
+   copies inside the kernel's time).
 3. forward: ``llama_apply`` at Llama-3-8B width (all 32 layers, random
    weights from the seed) on 2048 tokens; the flash kernel must launch
    once per layer; logits against the plain-attention forward.
@@ -22,9 +29,12 @@ nonzero and prints no result:
    are printed; a slot's logits against a solo decode, eager and graphed.
 5. sharing: two tenants' decode servers (graphed) under ``ChipExecutor``.
 6. backward kernels: dq and dk/dv against their plain version on the
-   card at phase 2's shapes (some with an lse cotangent), bit-identical
-   on a second launch; at phase 2's timed shapes dq, dk/dv and SDPA's
-   backward timed in turns; then at six shapes around it all three kernels
+   card at phase 2's shapes (some with an lse cotangent, the padded
+   head dim 8 among them), bit-identical on a second launch; at phase
+   2's timed shapes dq and dk/dv (on inputs padded once to the native
+   head dim), the whole ``flash_backward`` (its padding, delta', both
+   kernels and the slices back) and SDPA's backward timed in turns;
+   then at six shapes around it all three kernels
    against their bounds, and one whole ``flash_backward`` (delta' and
    both kernels) in turns with SDPA's backward.
 7. training: ``llama_loss`` under ``make_train_step`` (Adam) at
@@ -113,12 +123,31 @@ nonzero and prints no result:
     MoE over ep = 4 (dim 4096, mlp 14336, 4 experts, top 2, capacity
     1.25) on x [2, 2048, 4096] bf16: y, aux, the dropped tokens and the
     gradients of x, the router and each rank's expert. (d)
-    ``ElasticTrainer`` 4 -> 2 -> 4 ranks on the workload CLI's Llama:
-    the 6 losses against one process, ``generation`` 2. (e)
-    ``entry.dryrun_multichip(4)`` on the card: its tail line, and
-    ``crossproc=ok``. Each leg's ms, ``comm.stats()`` and peak memory a
-    rank; the three kernels at a tp rank's and a pipeline stage's shapes
+    ``ElasticTrainer`` 4 -> 2 -> 4 ranks on the workload CLI's Llama,
+    then checkpointed through ``models/checkpoint.py``, restored, and
+    resumed by a new trainer on 3 ranks with the AdamW state and the
+    step count: the 8 losses against one process's same sequence,
+    ``generation`` 2. (e) ``entry.dryrun_multichip(4)`` on the card,
+    dispatching as the reference's does (the kernels: head dim 16 bf16
+    and float32, 8 padded): its tail line, ``crossproc=ok``, and each
+    kernel launched on every rank (the counts reset just before it and
+    read just after; the cross-process leg's four processes report
+    theirs, returned with the ranks' results); phases 2 and 6 hold the
+    kernels against their plain versions at the shapes it gives them.
+    Each leg's ms, ``comm.stats()`` and peak memory a rank;
+    the three kernels at a tp rank's and a pipeline stage's shapes
     against their plain versions, timed.
+20. admission to a pod on its card: the port's ``WebhookServer`` on
+    localhost mutates a fractional pod's AdmissionReview; the
+    interposer is installed into a temporary library directory
+    (``runtime/native.py::install_interposer``); a child env is built
+    from the patches (the ``/kubeshare/library`` prefix rewritten to
+    that directory), the card's NVML uuid as ``TPU_VISIBLE_CHIPS`` and a
+    ``tpu-pmgr`` port from a ``NodeLauncher``; an unmodified PyTorch
+    child (matmuls and attention) must see one device, that uuid, and
+    the interposer must have gated its launches and set
+    ``CUDA_VISIBLE_DEVICES``. A second child given a uuid no card has
+    must see no device and fail.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device, and
@@ -171,7 +200,10 @@ PEAK_BYTES = 3.35e12
 # summation order. bf16: P is rounded to bf16 before the PV product and
 # the output to bf16 at the end; a summation-order difference can flip
 # either rounding by one bf16 ulp (7.8e-3 for |out| < 2), so out is held
-# to 2e-2 (about 2.5 ulps); lse is float32 in both.
+# to 2e-2 (about 2.5 ulps); lse is float32 in both. Where a row averages
+# many keys (Tk >= 2048) |out| shrinks to ~sqrt(e / n) and 2e-2 is as
+# large as the values: there each row is also held by its error's norm
+# over its own norm, at SP_ROW_REL_TOL.
 TOL = {"float32": {"out": 1e-5, "lse": 1e-5},
        "bfloat16": {"out": 2e-2, "lse": 1e-4}}
 # The backward kernels against their plain version, on each of dq, dk and
@@ -449,12 +481,16 @@ MC_MOE = dict(dim=4096, mlp_dim=14336, experts=4, top_k=2,
               capacity_factor=1.25)
 MC_MOE_TOKENS = (2, 2048)
 # (d): the workload CLI's Llama (cmd/workload.py) on 8 rows of 256
-# tokens, AdamW 1e-3, two steps at each membership
+# tokens, AdamW 1e-3, two steps at each membership; then the run is
+# checkpointed, restored and resumed on 3 ranks for two steps on the
+# first 6 rows (which divide by 3)
 MC_ELASTIC_CFG = dict(vocab=2048, dim=256, layers=4, num_heads=8,
                       num_kv_heads=4, mlp_dim=512, max_seq_len=256)
 MC_ELASTIC_TOKENS = (8, 256)
 MC_ELASTIC_RANKS = ((0, 1, 2, 3), (0, 1), (0, 1, 2, 3))
 MC_ELASTIC_ONE = ((0,), (0,), (0,))       # one process: the same steps
+MC_ELASTIC_RESUME = (0, 1, 2)
+MC_ELASTIC_RESUME_ROWS = 6
 MC_ELASTIC_STEPS = 2
 MC_LR = 1e-4
 # (b) and (c) against one process: outputs by each row's norm (the
@@ -492,9 +528,11 @@ def mc_configs():
 
 
 def mc_elastic_batches(device, seed: int):
+    """The shared global batches of (d): MC_ELASTIC_STEPS for each
+    membership and for the resumed run."""
     return [mc_tokens(device, seed + 10 + i, MC_ELASTIC_TOKENS,
                       MC_ELASTIC_CFG["vocab"])
-            for i in range(len(MC_ELASTIC_RANKS) * MC_ELASTIC_STEPS)]
+            for i in range((len(MC_ELASTIC_RANKS) + 1) * MC_ELASTIC_STEPS)]
 
 
 def mc_reset(device) -> None:
@@ -696,15 +734,23 @@ def mc_leg_moe(device, seed: int, mesh=None) -> dict:
             "slots": dispatch.sum(dim=(1, 2)).cpu()}
 
 
-def mc_leg_elastic(device, seed: int, memberships) -> dict:
+def mc_leg_elastic(device, seed: int, memberships, resume_ranks,
+                   directory: str) -> dict:
     """(d): an ElasticTrainer on the workload CLI's Llama through
     ``memberships`` (resized before each but the first), MC_ELASTIC_STEPS
-    steps each on the shared global batches; None where this rank
-    idled."""
+    steps each on the shared global batches; then the run is saved to
+    ``directory`` (by rank 0) and, as after the whole job died, restored
+    into a fresh model and resumed by a new trainer over
+    ``resume_ranks`` with the AdamW state and the step count, for
+    MC_ELASTIC_STEPS steps on the first MC_ELASTIC_RESUME_ROWS rows;
+    None where this rank idled."""
     import torch
 
+    from kubeshare_tpu_torch.models.checkpoint import (
+        restore_checkpoint, save_checkpoint,
+    )
     from kubeshare_tpu_torch.models.llama import init_llama, llama_loss
-    from kubeshare_tpu_torch.parallel import ElasticTrainer
+    from kubeshare_tpu_torch.parallel import ElasticTrainer, comm
 
     model = init_llama(mc_configs()["elastic"],
                        generator=mc_gen(device, seed + 8), device=device,
@@ -721,9 +767,26 @@ def mc_leg_elastic(device, seed: int, memberships) -> dict:
         for _ in range(MC_ELASTIC_STEPS):
             loss = trainer.step(next(batches))
             losses.append(None if loss is None else float(loss))
+    if trainer.rank == 0:
+        save_checkpoint(directory, trainer.steps, trainer.model,
+                        trainer.optimizer)
+    if comm.world() is not None:
+        comm.barrier(comm.world())
+    model = init_llama(mc_configs()["elastic"],
+                       generator=mc_gen(device, seed + 9), device=device,
+                       trainable=True)
+    step, _, opt_state = restore_checkpoint(directory, model)
+    reborn = ElasticTrainer(lambda m, t: llama_loss(m, t), model,
+                            learning_rate=1e-3, ranks=resume_ranks,
+                            opt_state=opt_state, steps=step)
+    for _ in range(MC_ELASTIC_STEPS):
+        loss = reborn.step(next(batches)[:MC_ELASTIC_RESUME_ROWS])
+        losses.append(None if loss is None else float(loss))
     torch.cuda.synchronize()
     return {"losses": losses, "generation": trainer.generation,
             "steps": trainer.steps, "dp": trainer.dp,
+            "restored_step": step, "resumed_steps": reborn.steps,
+            "resumed_dp": reborn.dp,
             **mc_read(device, time.perf_counter() - t0)}
 
 
@@ -734,7 +797,7 @@ def mc_free() -> None:
     torch.cuda.empty_cache()
 
 
-def multichip_rank(joined, seed: int) -> dict:
+def multichip_rank(joined, seed: int, directory: str) -> dict:
     """One rank of phase 19's world (module docstring): the FSDP x TP
     step, the pipeline trunk, MoE over ep and the elastic trainer, each
     on this rank's part, each leg's memory freed before the next.
@@ -756,7 +819,8 @@ def multichip_rank(joined, seed: int) -> dict:
     out["moe"] = mc_leg_moe(device, seed, make_mesh(MeshPlan(ep=MC_RANKS)))
     mc_free()
     progress(f"rank {joined.rank}: (d) elastic")
-    out["elastic"] = mc_leg_elastic(device, seed, MC_ELASTIC_RANKS)
+    out["elastic"] = mc_leg_elastic(device, seed, MC_ELASTIC_RANKS,
+                                    MC_ELASTIC_RESUME, directory)
     return out
 
 
@@ -789,13 +853,16 @@ def multichip_phase(device, seed: int, smi: str) -> dict:
     mc_free()
     mc_one["moe"] = mc_leg_moe(device, seed)
     mc_free()
-    mc_one["elastic"] = mc_leg_elastic(device, seed, MC_ELASTIC_ONE)
+    with tempfile.TemporaryDirectory(prefix="smoke-elastic-") as ckpt:
+        mc_one["elastic"] = mc_leg_elastic(device, seed, MC_ELASTIC_ONE,
+                                           (0,), ckpt)
     mc_free()
     moe_cfg = mc_cfgs["moe"]
     progress("phase 19: one process done; the world starts")
     t0 = time.perf_counter()
-    mc_world = run_world(multichip_rank, MC_RANKS, args=(seed,),
-                         timeout=900, device_type=device.type)
+    with tempfile.TemporaryDirectory(prefix="smoke-elastic-") as ckpt:
+        mc_world = run_world(multichip_rank, MC_RANKS, args=(seed, ckpt),
+                             timeout=900, device_type=device.type)
     mc_world_s = time.perf_counter() - t0
 
     # (a) against one process: step 0's loss, the probe gradients
@@ -909,14 +976,20 @@ def multichip_phase(device, seed: int, smi: str) -> dict:
           f"MoE over ep against one process: rows {moe_row_rel}, aux "
           f"{moe_aux_err}, same drops {same_slots}, grads {moe_grad_rel}")
 
-    # (d) the elastic trajectory
+    # (d) the elastic trajectory, the checkpoint and the resumed run
     el_docs = [r["elastic"] for r in mc_world]
     one_losses = mc_one["elastic"]["losses"]
     el_rel = max(abs(a - b) / abs(b) for a, b in zip(
         el_docs[0]["losses"], one_losses))
+    steps_saved = len(MC_ELASTIC_RANKS) * MC_ELASTIC_STEPS
     emit({"phase": "multichip_elastic", "card": smi,
           "config": MC_ELASTIC_CFG, "tokens": list(MC_ELASTIC_TOKENS),
           "memberships": [list(m) for m in MC_ELASTIC_RANKS],
+          "resumed_on": list(MC_ELASTIC_RESUME),
+          "resumed_rows": MC_ELASTIC_RESUME_ROWS,
+          "restored_step": [d["restored_step"] for d in el_docs],
+          "resumed_steps": [d["resumed_steps"] for d in el_docs],
+          "resumed_dp": [d["resumed_dp"] for d in el_docs],
           "losses": [d["losses"] for d in el_docs],
           "one_process_losses": one_losses, "loss_rel_err": el_rel,
           "loss_rel_tol": MC_ELASTIC_REL_TOL,
@@ -927,27 +1000,232 @@ def multichip_phase(device, seed: int, smi: str) -> dict:
           "launches_per_rank": [d["launches"] for d in el_docs],
           "comm_per_rank": [d["comm"] for d in el_docs]})
     check(el_rel <= MC_ELASTIC_REL_TOL
+          and len(one_losses) == len(el_docs[0]["losses"])
+          == steps_saved + MC_ELASTIC_STEPS
           and all(d["generation"] == 2 for d in el_docs)
-          and el_docs[2]["losses"][2:4] == [None, None],
-          f"elastic 4 -> 2 -> 4: {el_docs} against {one_losses}")
+          and el_docs[2]["losses"][2:4] == [None, None]
+          and el_docs[3]["losses"][steps_saved:] == [None] * MC_ELASTIC_STEPS
+          and all(d["restored_step"] == steps_saved for d in el_docs)
+          and all(el_docs[r]["resumed_steps"]
+                  == steps_saved + MC_ELASTIC_STEPS
+                  and el_docs[r]["resumed_dp"] == len(MC_ELASTIC_RESUME)
+                  for r in MC_ELASTIC_RESUME),
+          f"elastic 4 -> 2 -> 4 -> checkpoint -> 3: {el_docs} against "
+          f"{one_losses}")
     for r, d in enumerate(el_docs):
         check(all(d["launches"][k] > 0 for k in LAUNCHES),
               f"elastic rank {r} did not launch every kernel: "
               f"{d['launches']}")
 
-    # (e) the dry run on the card
+    # (e) the dry run on the card, on the kernels: every count set to 0
+    # just before it (each rank process zeroes its own, and so does each
+    # cross-process worker) and read just after
     progress("phase 19: dryrun_multichip(4)")
     t0 = time.perf_counter()
     captured = io.StringIO()
     with contextlib.redirect_stdout(captured):
-        port_entry.dryrun_multichip(MC_RANKS, device=device)
+        dry_run = port_entry.dryrun_multichip(MC_RANKS, device=device)
     dry = captured.getvalue().strip().splitlines()
+    dry_ranks, crossproc = dry_run["ranks"], dry_run["crossproc_launches"]
     emit({"phase": "multichip_dryrun", "card": smi, "tail": dry[-1],
-          "lines": dry[:-1], "seconds": time.perf_counter() - t0})
-    check("crossproc=ok" in dry[-1], f"dryrun_multichip(4): {dry}")
+          "lines": dry[:-1], "seconds": time.perf_counter() - t0,
+          "launches_per_rank": [r["launches"] for r in dry_ranks],
+          "leg_launches_per_rank": [r["leg_launches"] for r in dry_ranks],
+          "crossproc_launches": crossproc})
+    check("crossproc=ok" in dry[-1] and "attention=flash kernels" in dry[-1],
+          f"dryrun_multichip(4): {dry}")
+    for r, d in enumerate(dry_ranks):
+        legs = d["leg_launches"]
+        check(all(d["launches"][k] > 0 for k in LAUNCHES)
+              and all(legs["train"][k] > 0 for k in LAUNCHES)
+              and all(legs[leg]["flash_fwd"] > 0
+                      for leg in ("sp_attention", "sp_loss", "pipeline")),
+              f"dryrun rank {r} did not launch every kernel: {legs}")
+    check(len(crossproc) == port_entry.CROSSPROC_PROCESSES
+          and all(c[k] > 0 for c in crossproc for k in LAUNCHES),
+          f"the dry run's cross-process workers' launches: {crossproc}")
 
     return {"cfgs": mc_cfgs, "tp_plan": tp_plan, "tp": tp_docs,
-            "pp": pp_docs}
+            "pp": pp_docs, "dry_ranks": dry_ranks, "crossproc": crossproc}
+
+
+# Phase 20: an unmodified PyTorch pod program (the interposer's counters
+# read through ctypes, as any program may read them): the devices it
+# sees, device 0's uuid, and a few matmul and attention steps. It exits 3
+# when it sees no device.
+ADMITTED_POD = r"""
+import ctypes, json, sys
+import torch
+import torch.nn.functional as F
+if not torch.cuda.is_available():
+    print(json.dumps({"device_count": torch.cuda.device_count()}))
+    sys.exit(3)
+gen = torch.Generator(device="cuda").manual_seed(0)
+x = torch.randn(4096, 4096, device="cuda", generator=gen) / 64
+q = torch.randn(1, 16, 2048, 64, device="cuda", dtype=torch.bfloat16,
+                generator=gen)
+for _ in range(8):
+    x = torch.tanh(x @ x)
+    q = F.scaled_dot_product_attention(q, q, q, is_causal=True)
+torch.cuda.synchronize()
+stats = getattr(ctypes.CDLL(None), "kubeshare_cuda_interposer_stats", None)
+if stats is not None:
+    stats.restype = ctypes.c_char_p
+    stats = json.loads(stats().decode())
+print(json.dumps({"device_count": torch.cuda.device_count(),
+                  "uuid": str(torch.cuda.get_device_properties(0).uuid),
+                  "finite": bool(torch.isfinite(x).all()
+                                 and torch.isfinite(q).all()),
+                  "interposer": stats}))
+"""
+# a uuid no card has
+NO_CARD_UUID = "GPU-00000000-0000-0000-0000-000000000000"
+
+
+def json_patch(doc, patches):
+    """``doc`` with a JSONPatch of "add" operations applied."""
+    for patch in patches:
+        check(patch["op"] == "add", f"unexpected patch {patch}")
+        parts = [p for p in patch["path"].split("/") if p]
+        target = doc
+        for key in parts[:-1]:
+            target = target[int(key)] if isinstance(target, list) \
+                else target[key]
+        if parts[-1] == "-":
+            target.append(patch["value"])
+        else:
+            target[parts[-1]] = patch["value"]
+    return doc
+
+
+def admission_phase(uuid: str, smi: str) -> dict:
+    """Phase 20 (module docstring): the webhook's patches, the installed
+    interposer, the card's uuid as the scheduler's contract and a live
+    tpu-pmgr under an unmodified PyTorch child; then a child given a
+    uuid no card has."""
+    import base64
+    import urllib.request
+
+    from kubeshare_tpu_torch.bench import node as node_bench
+    from kubeshare_tpu_torch.bench.arbiter import free_port
+    from kubeshare_tpu_torch.cluster.labels import (
+        LABEL_TPU_LIMIT, LABEL_TPU_REQUEST, SCHEDULER_NAME,
+    )
+    from kubeshare_tpu_torch.cluster.webhook import WebhookServer
+    from kubeshare_tpu_torch.constants import (
+        ENV_POD_MANAGER_PORT, ENV_POD_NAME, ENV_VISIBLE_CHIPS, LIBRARY_PATH,
+    )
+    from kubeshare_tpu_torch.nodeconfig.daemon import NodeConfigDaemon
+    from kubeshare_tpu_torch.runtime.launcher import NodeLauncher
+    from kubeshare_tpu_torch.runtime.native import install_interposer
+
+    pod = {"metadata": {"name": "admitted", "namespace": "smoke",
+                        "labels": {LABEL_TPU_REQUEST: "0.5",
+                                   LABEL_TPU_LIMIT: "1.0"}},
+           "spec": {"schedulerName": SCHEDULER_NAME,
+                    "containers": [{"name": "main", "image": "pod"}]}}
+    review = {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+              "request": {"uid": "smoke-20", "kind": {"kind": "Pod"},
+                          "object": pod}}
+    server = WebhookServer(host="127.0.0.1", port=0).start()
+    try:
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/mutate",
+            data=json.dumps(review).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=10) as resp:
+            answer = json.loads(resp.read())["response"]
+    finally:
+        server.stop()
+    check(answer["allowed"] and answer.get("patchType") == "JSONPatch",
+          f"the webhook did not patch the pod: {answer}")
+    patches = json.loads(base64.b64decode(answer["patch"]))
+    admitted = json_patch(pod, patches)
+    pod_env = {e["name"]: e["value"]
+               for e in admitted["spec"]["containers"][0]["env"]}
+
+    ports = {name: free_port() for name in node_bench.PODS}
+    with tempfile.TemporaryDirectory(prefix="smoke-admission-") as tmp:
+        library = os.path.join(tmp, "library")
+        installed = str(install_interposer(library))
+        # the hostPath mount, for a child on this machine: the node's
+        # library directory is the temporary one
+        rewritten = {k: v.replace(LIBRARY_PATH, library)
+                     for k, v in pod_env.items()}
+        progress(f"phase 20: {LIBRARY_PATH} rewritten to {library}")
+        base = os.path.join(tmp, "node")
+        NodeConfigDaemon(node_bench.NODE, base,
+                         lambda: node_bench.requirement_samples(
+                             uuid, ports)).sync()
+        launcher = NodeLauncher(base, [uuid], base_port=free_port(),
+                                window_ms=node_bench.WINDOW_MS,
+                                lease_slots=node_bench.SLOTS)
+        try:
+            launcher.start_arbiters()
+            node_bench._wait_port(launcher.chips[uuid].port)
+            launcher.reconcile()
+            node_bench._wait_port(ports["pod-a"])
+            clean = {k: v for k, v in os.environ.items()
+                     if not k.startswith("KUBESHARE_")
+                     and k not in ("LD_PRELOAD", "CUDA_VISIBLE_DEVICES",
+                                   ENV_VISIBLE_CHIPS)}
+            runs = {}
+            for name, chips in (("admitted", uuid), ("no_card",
+                                                     NO_CARD_UUID)):
+                env = {**clean, **rewritten, ENV_VISIBLE_CHIPS: chips,
+                       ENV_POD_MANAGER_PORT: str(ports["pod-a"]),
+                       ENV_POD_NAME: "smoke/pod-a"}
+                t0 = time.perf_counter()
+                proc = subprocess.run([sys.executable, "-c", ADMITTED_POD],
+                                      env=env, capture_output=True,
+                                      text=True, timeout=300)
+                lines = proc.stdout.strip().splitlines()
+                runs[name] = {
+                    "rc": proc.returncode,
+                    "seconds": time.perf_counter() - t0,
+                    "doc": json.loads(lines[-1]) if lines else None,
+                    "interposer_log": [
+                        line for line in proc.stderr.splitlines()
+                        if line.startswith("[cuda-interposer]")],
+                    "stderr_tail": proc.stderr[-1500:]}
+        finally:
+            launcher.shutdown()
+    good, bogus = runs["admitted"], runs["no_card"]
+    doc = good["doc"] or {}
+    child_uuid = doc.get("uuid", "")
+    if child_uuid and not child_uuid.startswith(("GPU-", "MIG-")):
+        child_uuid = "GPU-" + child_uuid
+    stats = doc.get("interposer") or {}
+    result = {"phase": "admission", "card": smi,
+              "patches": patches, "pod_env": pod_env,
+              "library_dir_rewritten": {LIBRARY_PATH: library},
+              "installed": installed, "contract": uuid,
+              "child_uuid": child_uuid,
+              "child_device_count": doc.get("device_count"),
+              "child_finite": doc.get("finite"),
+              "interposer": {k: v for k, v in stats.items()
+                             if k != "functions"},
+              "interposer_kernels": len(stats.get("functions", {})),
+              "interposer_log": good["interposer_log"],
+              "admitted_rc": good["rc"], "admitted_s": good["seconds"],
+              "no_card_rc": bogus["rc"], "no_card_doc": bogus["doc"],
+              "no_card_log": bogus["interposer_log"]}
+    emit(result)
+    check(pod_env.get("LD_PRELOAD") == LIBRARY_PATH
+          + "/libcuda_interposer.so" and os.path.basename(installed)
+          == "libcuda_interposer.so",
+          f"the webhook's env {pod_env}, installed {installed}")
+    check(good["rc"] == 0 and child_uuid == uuid
+          and doc.get("device_count") == 1 and doc.get("finite"),
+          f"the admitted pod is not on its card: {good}")
+    check(stats.get("mode") == "gated" and stats.get("acquires", 0) > 0
+          and stats.get("launch", 0) + stats.get("launch_ex", 0) > 0
+          and stats.get("visible_devices") == "set"
+          and stats.get("visible_chips") == uuid,
+          f"the admitted pod's interposer: {stats} {good['stderr_tail']}")
+    check(bogus["rc"] != 0 and (bogus["doc"] or {}).get("device_count") == 0,
+          f"a pod given {NO_CARD_UUID} still saw a card: {bogus}")
+    return result
 
 
 def main() -> int:
@@ -1104,8 +1382,39 @@ def main() -> int:
     # heads, T = seq_len - 1 = 255) and entry()'s forward ([2, 128])
     cli_case = ((256, 8, 4, 255, 255, 32), "bfloat16", True, 0)
     entry_case = ((2, 8, 4, 128, 128, 32), "bfloat16", True, 0)
+    # the reference's dry-run head dims (16: its bf16 Llama and its
+    # float32 ring and Ulysses; 8: its float32 sp loss and pipeline, run
+    # padded to 16) and 96 (padded to 128), at one shape long enough to
+    # time
+    small_d = {((1, 4, 2, 8192, 8192, 16), "bfloat16", True, 0): "_d16",
+               ((1, 4, 2, 8192, 8192, 16), "float32", True, 0): "_d16_f32",
+               ((1, 4, 2, 8192, 8192, 8), "float32", True, 0): "_d8_f32",
+               ((1, 4, 2, 8192, 8192, 96), "bfloat16", True, 0): "_d96"}
+    # the shapes phase 19 (e)'s dry run (entry.dryrun_multichip(4):
+    # rank-local shards) gives the kernels, and its leg
+    dryrun_cases = {
+        # the bf16 Llama's train step: batch 2 a fsdp shard, 2 of 4 heads
+        # and 1 of 2 kv heads a tp rank, T 16
+        ((2, 2, 1, 16, 16, 16), "bfloat16", True, 0): "train",
+        # ring attention: each rank's 8-row shard against its own (causal)
+        # and an earlier one's (full)
+        ((1, 2, 2, 8, 8, 16), "float32", True, 0): "ring",
+        ((1, 2, 2, 8, 8, 16), "float32", False, 0): "ring",
+        # Ulysses: 1 of 4 heads at the full T 32
+        ((1, 1, 1, 32, 32, 16), "float32", True, 0): "ulysses",
+        # the sp loss: its ring's hops, and llama_loss it is held to
+        ((2, 4, 2, 8, 8, 8), "float32", True, 0): "sp_loss",
+        ((2, 4, 2, 8, 8, 8), "float32", False, 0): "sp_loss",
+        ((2, 4, 2, 32, 32, 8), "float32", True, 0): "sp_loss",
+        # the pipeline: a microbatch of 2 in a stage, and llama_hidden
+        ((2, 4, 2, 16, 16, 8), "float32", True, 0): "pipeline",
+        ((4, 4, 2, 16, 16, 8), "float32", True, 0): "pipeline",
+        # the cross-process step: a dp member's 2 rows, a tp rank's heads
+        ((2, 2, 1, 8, 8, 8), "float32", True, 0): "crossproc",
+    }
     # the timed cases and the suffix of their rows' kernel names
-    timed = {main_case: "", cli_case: "_d32", entry_case: "_d32_entry"}
+    timed = {main_case: "", cli_case: "_d32", entry_case: "_d32_entry",
+             **small_d}
     cases = [
         main_case,
         ((1, 32, 8, 2048, 2048, 128), "float32", True, 0),
@@ -1123,6 +1432,11 @@ def main() -> int:
         (entry_case[0], "float32", True, 0),
         ((2, 8, 4, 300, 300, 32), "bfloat16", True, 64),
         ((2, 8, 4, 300, 300, 32), "float32", True, 64),
+        *small_d,
+        ((2, 4, 2, 300, 300, 16), "bfloat16", True, 64),
+        ((1, 4, 2, 77, 333, 8), "float32", True, 0),
+        ((1, 8, 2, 200, 200, 96), "bfloat16", False, 0),
+        *dryrun_cases,
     ]
     fwd_rows = {}
     for shape, dtype_name, causal, window in cases:
@@ -1132,21 +1446,34 @@ def main() -> int:
         k = randn(batch, kv_heads, t_k, head_dim, dtype=dtype)
         v = randn(batch, kv_heads, t_k, head_dim, dtype=dtype)
         out, lse = flash_forward(q, k, v, causal, None, window)
+        again, again_lse = flash_forward(q, k, v, causal, None, window)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_attention_reference(q, k, v, causal, None,
                                                      window)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
+        # each output row's error over its norm, held where rows average
+        # many keys (TOL's comment)
+        row_rel = row_rel_err(out, ref_out)
+        long_rows = t_k >= 2048
+        identical = torch.equal(out, again) and torch.equal(lse, again_lse)
         check(torch.isfinite(out).all().item(), f"non-finite out {shape}")
         tol = TOL[dtype_name]
+        case = (shape, dtype_name, causal, window)
         row = {"phase": "kernel", "shape": list(shape), "dtype": dtype_name,
-               "causal": causal, "window": window, "max_abs_err": err_out,
-               "lse_max_abs_err": err_lse, "tol_out": tol["out"],
-               "tol_lse": tol["lse"]}
+               "causal": causal, "window": window,
+               "native_head_dim": attn.native_head_dim(head_dim),
+               "dryrun_leg": dryrun_cases.get(case),
+               "max_abs_err": err_out, "lse_max_abs_err": err_lse,
+               "out_row_rel_err": row_rel,
+               "tol_out": tol["out"], "tol_lse": tol["lse"],
+               "out_row_rel_tol": SP_ROW_REL_TOL if long_rows else None,
+               "identical_on_repeat": identical}
         emit(row)
-        check(err_out <= tol["out"] and err_lse <= tol["lse"],
+        check(err_out <= tol["out"] and err_lse <= tol["lse"] and identical
+              and (not long_rows or row_rel <= SP_ROW_REL_TOL),
               f"flash kernel disagrees with its plain version: {row}")
-        suffix = timed.get((shape, dtype_name, causal, window))
+        suffix = timed.get(case)
         if suffix is not None:
             bound_ms, bound_by = flash_bound_ms(shape, dtype_name, causal,
                                                 window)
@@ -1178,7 +1505,7 @@ def main() -> int:
                             "launches queued behind a sleep, in turns "
                             "with SDPA"})
             fwd_rows[suffix] = kernel_row
-        del q, k, v, out, lse, ref_out, ref_lse
+        del q, k, v, out, lse, again, again_lse, ref_out, ref_lse
     torch.cuda.empty_cache()
 
     # ---- 3. forward at Llama-3-8B width ---------------------------------
@@ -1384,9 +1711,14 @@ def main() -> int:
 
     # ---- 6. backward kernels against their plain version ----------------
     mark("6_backward_kernels")
-    # phase 2's cases; an lse cotangent on three of them, as a ring merge
+    # phase 2's cases; an lse cotangent on some of them (the padded head
+    # dim 8 and the dry run's ring hops among them), as a ring merge
     # would send it
-    glse_cases = {2, 4, 9, 14}
+    glse_cases = {2, 4, 9, 14} | {
+        cases.index(c) for c in (
+            ((1, 4, 2, 8192, 8192, 8), "float32", True, 0),
+            ((1, 2, 2, 8, 8, 16), "float32", False, 0),
+            ((2, 4, 2, 8, 8, 8), "float32", False, 0))}
     bwd_rows = {}
     for i, (shape, dtype_name, causal, window) in enumerate(cases):
         batch, heads, kv_heads, t_q, t_k, head_dim = shape
@@ -1413,6 +1745,8 @@ def main() -> int:
         tol = BWD_REL_TOL[dtype_name]
         row = {"phase": "backward_kernels", "shape": list(shape),
                "dtype": dtype_name, "causal": causal, "window": window,
+               "dryrun_leg": dryrun_cases.get(
+                   (shape, dtype_name, causal, window)),
                "g_lse": g_lse is not None, "rel_err": rel,
                "max_abs_err": abs_err, "rel_tol": tol,
                "identical_on_repeat": identical}
@@ -1423,24 +1757,32 @@ def main() -> int:
               f"backward kernels disagree with their plain version: {row}")
         suffix = timed.get((shape, dtype_name, causal, window))
         if suffix is not None:
-            scale = head_dim ** -0.5
-            dq_in = (q, k, v, do, lse, attn._flash_delta(out, do))
-            timing_args = (causal, scale, window)
+            # each kernel on inputs padded once, here, to the native head
+            # dim (the copies outside its time); the whole flash_backward
+            # pads q, k, v, out and dO, computes delta', runs both
+            # kernels and slices dq, dk and dv back on every call
+            native = attn.native_head_dim(head_dim)
+            kernel_in = (*attn.pad_head_dim(native, q, k, v, do), lse,
+                         attn._flash_delta(out, do), causal,
+                         head_dim ** -0.5, window)
             plain_ms = cuda_ms(lambda: flash_backward_reference(
                 q, k, v, out, lse, do, None, causal, None, window), 5,
                 warmup=1)
-            # one timing per call moves: dq, dk/dv and SDPA's backward
-            # (dq, dk and dv together) take turns
+            # one timing per call moves: dq, dk/dv, the whole backward
+            # and SDPA's backward (dq, dk and dv together) take turns
             ms = interleaved_ms({
-                "flash_bwd_dq": lambda: attn._flash_bwd_dq_cuda(
-                    *dq_in, *timing_args),
+                "flash_bwd_dq": lambda: attn._flash_bwd_dq_cuda(*kernel_in),
                 "flash_bwd_dkv": lambda: attn._flash_bwd_dkv_cuda(
-                    *dq_in, *timing_args),
+                    *kernel_in),
+                "flash_backward": lambda: flash_backward(
+                    q, k, v, out, lse, do, None, causal, None, window),
                 "sdpa_bwd": sdpa_backward(q, k, v, do, causal)})
             emit({"phase": "kernel_timing_bwd", "shape": list(shape),
-                  "dtype": dtype_name, "ms": ms,
+                  "dtype": dtype_name, "native_head_dim": native, "ms": ms,
                   "dq_plus_dkv_over_library": (ms["flash_bwd_dq"]
                                                + ms["flash_bwd_dkv"])
+                  / ms["sdpa_bwd"],
+                  "flash_backward_over_library": ms["flash_backward"]
                   / ms["sdpa_bwd"],
                   "timing": "median of 7 rounds of 20 back-to-back "
                             "launches queued behind a sleep, in turns"})
@@ -1460,13 +1802,15 @@ def main() -> int:
                                  "kubeshare_tpu/ops/attention.py:348"),
                     "max_abs_err": err,
                     "ms": ms[name],
+                    # the whole wrapper: padding, delta', both kernels
+                    "flash_backward_ms": ms["flash_backward"],
                     # one plain function computes dq, dk and dv together
                     "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     # SDPA's backward (dq, dk and dv together)
                     "library_ms": ms["sdpa_bwd"],
                 }
-            del dq_in
+            del kernel_in
         del q, k, v, do, g_lse, out, lse, got, again, want
     torch.cuda.empty_cache()
 
@@ -2077,6 +2421,7 @@ def main() -> int:
     mig_mode = backend.mig_mode(0)
     check(len(chips) >= 1, "NVML enumerates no device")
     row = chips[0]
+    card_uuid = row.uuid     # NVML's uuid of the card (phase 20 too)
     props = torch.cuda.get_device_properties(0)
     torch_uuid = str(props.uuid)
     if not torch_uuid.startswith("GPU-"):
@@ -2478,6 +2823,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 20. admission to a pod on its card ----------------------------
+    mark("20_admission")
+    gc.collect()
+    torch.cuda.empty_cache()
+    admission_phase(card_uuid, smi)
+
     mark("end")
     marks = list(phase_started.items())
     emit({"phase": "timing",
@@ -2493,11 +2844,49 @@ def main() -> int:
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         bwd_rows[name]["launches"] = train_launches[name]
         bwd_rows[name + "_d32"]["launches"] = llama_step_launches[name]
+    # the reference's dry-run head dims: launches of phase 19 (e), summed
+    # over its ranks (and the cross-process workers). Head dim 16 bf16:
+    # its Llama's train step; 16 float32: its ring and Ulysses; 8 float32
+    # (padded, the float32 head-dim-16 instances): its sp loss and
+    # pipeline, and the cross-process step.
+    dry_legs = [r["leg_launches"] for r in mc["dry_ranks"]]
+
+    def dry_sum(legs, kernel, crossproc=False):
+        return (sum(d[leg][kernel] for d in dry_legs for leg in legs)
+                + (sum(c[kernel] for c in mc["crossproc"])
+                   if crossproc else 0))
+
+    fwd_rows["_d16"]["launches"] = dry_sum(("train",), "flash_fwd")
+    fwd_rows["_d16_f32"]["launches"] = dry_sum(("sp_attention",),
+                                               "flash_fwd")
+    fwd_rows["_d8_f32"]["launches"] = dry_sum(("sp_loss", "pipeline"),
+                                              "flash_fwd", crossproc=True)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        bwd_rows[name + "_d16"]["launches"] = dry_sum(("train",), name)
+        bwd_rows[name + "_d8_f32"]["launches"] = dry_sum((), name,
+                                                         crossproc=True)
+    small_d_rows = [fwd_rows["_d16"], bwd_rows["flash_bwd_dq_d16"],
+                    bwd_rows["flash_bwd_dkv_d16"], fwd_rows["_d16_f32"],
+                    fwd_rows["_d8_f32"], bwd_rows["flash_bwd_dq_d8_f32"],
+                    bwd_rows["flash_bwd_dkv_d8_f32"]]
+    check(all(r["launches"] > 0 for r in small_d_rows),
+          f"a dry-run instance was not launched: {small_d_rows}")
+    # timed in phases 2 and 6 but called on no main path at this head dim
+    # and dtype: 96 (no model of the repo has it) and the float32
+    # head-dim-16 backward called natively (the main path runs that
+    # instance padded from 8: the _d8_f32 rows)
+    off_path = [fwd_rows["_d96"], bwd_rows["flash_bwd_dq_d96"],
+                bwd_rows["flash_bwd_dkv_d96"],
+                bwd_rows["flash_bwd_dq_d16_f32"],
+                bwd_rows["flash_bwd_dkv_d16_f32"]]
+    for r in off_path:
+        r["launches"] = 0
+    emit({"phase": "kernel_timing_off_the_main_path", "rows": off_path})
     emit({"kernels": [fwd_rows[""], bwd_rows["flash_bwd_dq"],
                       bwd_rows["flash_bwd_dkv"], fwd_rows["_d32"],
                       bwd_rows["flash_bwd_dq_d32"],
-                      bwd_rows["flash_bwd_dkv_d32"], *sp_kernel_rows,
-                      *mc_kernel_rows]})
+                      bwd_rows["flash_bwd_dkv_d32"], *small_d_rows,
+                      *sp_kernel_rows, *mc_kernel_rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -26,11 +26,12 @@ twice as many layers, and MoE over ep = 4; then the cross-process leg:
 ``multihost.maybe_initialize``) train one dp 2 x tp 2 step (a port
 process drives one device, where each of the reference's two drove 4).
 It prints the reference's tail line, ``crossproc=ok|failed|skipped``
-among it, and raises when the cross-process leg failed twice. The
-reference's dry-run configs have head dims 16 and 8, which the flash
-kernels are not built for; its ``mha`` runs plain attention there on
-every backend (flash only from T 128 on tiled shapes), so these legs
-pass ``use_flash=False`` and the tail line says so.
+among it, and raises when the cross-process leg failed twice. Attention
+dispatches as the reference's does: ``mha``'s default, the flash kernels
+on the card (its configs' head dims 16 and, padded to 16, 8) and plain
+attention on the CPU. The tail line names the route and, on the card,
+each kernel's launches on every rank; the function returns the ranks'
+results and the cross-process workers' kernel launches.
 """
 
 from __future__ import annotations
@@ -99,7 +100,7 @@ def _dryrun_rank(joined) -> dict:
     from .models.moe import (
         MoeConfig, init_moe_ffn, moe_ffn_apply, moe_param_spec,
     )
-    from .ops.attention import attention
+    from .ops.attention import LAUNCHES, attention
     from .parallel import (
         MeshPlan, comm, factorize_devices, make_mesh,
         make_ring_attention, make_sharded_train_step, make_ulysses_attention,
@@ -107,6 +108,16 @@ def _dryrun_rank(joined) -> dict:
     )
 
     n, rank, device = joined.world, joined.rank, joined.device
+    legs = {}
+
+    def leg_done(name: str) -> None:
+        """The kernel launches of the leg that just ended."""
+        legs[name] = dict(LAUNCHES)
+        for kernel in LAUNCHES:
+            LAUNCHES[kernel] = 0
+
+    for kernel in LAUNCHES:   # the first leg counts from 0
+        LAUNCHES[kernel] = 0
     out = {}
     # the sharded train step: dp x fsdp x tp
     plan = factorize_devices(n, tp_max=2, fsdp_max=2)
@@ -115,8 +126,7 @@ def _dryrun_rank(joined) -> dict:
     model = init_llama(DRYRUN_CONFIG, generator=_gen(device, 0),
                        device=device, trainable=True)
     step, model, _ = make_sharded_train_step(
-        lambda m, b: llama_loss(m, b, use_flash=False), model, mesh,
-        learning_rate=1e-3)
+        llama_loss, model, mesh, learning_rate=1e-3)
     batch = torch.randint(0, DRYRUN_CONFIG.vocab,
                           (2 * plan.dp * plan.fsdp, 17),
                           generator=_gen(device, 1), device=device)
@@ -124,6 +134,7 @@ def _dryrun_rank(joined) -> dict:
     if not math.isfinite(out["loss"]):
         raise AssertionError(f"dryrun loss not finite: {out['loss']}")
     del model, step
+    leg_done("train")
 
     # sequence parallel: ring and Ulysses attention over sp = n
     sp_mesh = make_mesh(MeshPlan(sp=n))
@@ -132,16 +143,18 @@ def _dryrun_rank(joined) -> dict:
     q, k, v = (torch.randn(b, h, t, d, generator=gen, device=device)
                for _ in range(3))
     lo, hi = rank * 8, (rank + 1) * 8
-    ring = make_ring_attention(sp_mesh, causal=True, use_flash=False)
+    ring = make_ring_attention(sp_mesh, causal=True)
     with torch.no_grad():
-        got = ring(q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi])
+        # this rank's shard, as its own tensor (the kernels read
+        # contiguous rows)
+        got = ring(*(t[:, :, lo:hi].contiguous() for t in (q, k, v)))
         want = attention(q, k, v, causal=True)[:, :, lo:hi]
         out["ring_err"] = _max_over_world(
             (got - want).abs().max().item(), device)
         qu = torch.randn(b, n, t, d, generator=_gen(device, 3),
                          device=device)
-        uly = make_ulysses_attention(sp_mesh, causal=True, use_flash=False)
-        shard = qu[:, :, lo:hi]
+        uly = make_ulysses_attention(sp_mesh, causal=True)
+        shard = qu[:, :, lo:hi].contiguous()
         got = uly(shard, shard, shard)
         want = attention(qu, qu, qu, causal=True)[:, :, lo:hi]
         out["ulysses_err"] = _max_over_world(
@@ -149,6 +162,7 @@ def _dryrun_rank(joined) -> dict:
     for name in ("ring_err", "ulysses_err"):
         if not out[name] < ATTENTION_TOL:
             raise AssertionError(f"{name} {out[name]}")
+    leg_done("sp_attention")
 
     # the sequence-parallel Llama loss against llama_loss
     sp_cfg = LlamaConfig(max_seq_len=8 * n, **SP_CONFIG)
@@ -156,14 +170,15 @@ def _dryrun_rank(joined) -> dict:
     sp_tokens = torch.randint(0, sp_cfg.vocab, (2, 8 * n + 1),
                               generator=_gen(device, 8), device=device)
     with torch.no_grad():
-        partial = make_llama_sp_loss(sp_cfg, sp_mesh, use_flash=False)(
+        partial = make_llama_sp_loss(sp_cfg, sp_mesh)(
             sp_model, sp_tokens)
         sp_val = float(comm.all_reduce_(partial.float().reshape(1),
                                         comm.world()))
-        sp_ref = float(llama_loss(sp_model, sp_tokens, use_flash=False))
+        sp_ref = float(llama_loss(sp_model, sp_tokens))
     out["sp_err"] = abs(sp_val - sp_ref)
     if not out["sp_err"] < SP_LOSS_TOL:
         raise AssertionError(f"sp llama loss mismatch: {sp_val} vs {sp_ref}")
+    leg_done("sp_loss")
 
     # the pipeline trunk: pp = 4 with twice as many layers
     pp = next(s for s in (4, 2, 1) if n % s == 0)
@@ -176,11 +191,12 @@ def _dryrun_rank(joined) -> dict:
     with torch.no_grad():
         stacked = shard_stacked_params(llama_stack_layers(pmodel), pp_mesh)
         ypp = llama_pipeline_hidden(pmodel, ptokens, pp_mesh, 2,
-                                    use_flash=False, stacked_layers=stacked)
-        yref = llama_hidden(pmodel, ptokens, use_flash=False)
+                                    stacked_layers=stacked)
+        yref = llama_hidden(pmodel, ptokens)
     out["pp_err"] = _max_over_world((ypp - yref).abs().max().item(), device)
     if not out["pp_err"] < PIPELINE_TOL:
         raise AssertionError(f"pipeline mismatch: {out['pp_err']}")
+    leg_done("pipeline")
 
     # expert parallel: MoE over ep = 4
     ep = pp
@@ -197,20 +213,38 @@ def _dryrun_rank(joined) -> dict:
     out["aux"] = float(aux)
     if not math.isfinite(out["aux"]):
         raise AssertionError("moe aux loss not finite")
+    leg_done("moe")
+    out["leg_launches"] = legs
+    out["launches"] = {kernel: sum(leg[kernel] for leg in legs.values())
+                       for kernel in LAUNCHES}
     return out
 
 
-def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> None:
+def _route(device_type: str, results) -> str:
+    """The tail's attention token: the kernels with each one's
+    launches on every rank, or plain attention on the CPU."""
+    if device_type != "cuda":
+        return "attention=plain (cpu)"
+    counts = ", ".join(
+        f"{name} {'/'.join(str(r['launches'][name]) for r in results)}"
+        for name in results[0]["launches"])
+    return f"attention=flash kernels (launches a rank: {counts})"
+
+
+def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> dict:
     """Run the reference's multi-device legs over ``n_devices`` rank
     processes (module docstring) on ``device``'s kind (default CUDA;
     ``device="cpu"`` runs them on the CPU), print the tail line, and
-    raise if a leg failed."""
+    raise if a leg failed. Returns ``{"ranks": each rank's results,
+    "crossproc_launches": each cross-process worker's kernel launches}``
+    (no workers when the leg was skipped)."""
     from .parallel.launch import run_world
 
     device_type = resolve_device(device).type
-    r = run_world(_dryrun_rank, n_devices, device_type=device_type,
-                  timeout=600)[0]
-    status, xp = _crossproc_status(device_type)
+    results = run_world(_dryrun_rank, n_devices, device_type=device_type,
+                        timeout=600)
+    r = results[0]
+    status, xp, crossproc_launches = _crossproc_status(device_type)
     dp, fsdp, tp = r["plan"]
     print(
         f"dryrun_multichip({n_devices}): mesh dp={dp} fsdp={fsdp} tp={tp} "
@@ -219,29 +253,30 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> None:
         f"max_err={r['ulysses_err']:.2e}; llama-sp-loss sp={n_devices} "
         f"err={r['sp_err']:.2e}; pipeline pp={r['pp']} "
         f"max_err={r['pp_err']:.2e}; moe ep={r['ep']} aux={r['aux']:.3f}; "
-        f"use_flash=False (head dims 16 and 8: plain attention, as the "
-        f"reference's mha); crossproc={status} "
+        f"{_route(device_type, results)}; crossproc={status} "
         f"{CROSSPROC_PROCESSES}-process {xp}", flush=True)
     _enforce_crossproc(status, xp)
+    return {"ranks": results, "crossproc_launches": crossproc_launches}
 
 
 def _crossproc_status(device_type: str = "cuda"):
     """Run the cross-process leg with one retry. Returns ``(status,
-    detail)``, status the tail's token ``ok`` / ``failed`` /
-    ``skipped``. Never raises (KeyboardInterrupt and SystemExit
+    detail, launches)``: status the tail's token ``ok`` / ``failed`` /
+    ``skipped``, launches each worker's kernel launches (none unless
+    ok). Never raises (KeyboardInterrupt and SystemExit
     excepted): the caller prints the tail first, then
     ``_enforce_crossproc`` turns a failure into an exception."""
     if os.environ.get("KUBESHARE_DRYRUN_CROSSPROC", "1") == "0":
-        return "skipped", "skipped by env"
+        return "skipped", "skipped by env", []
     last = None
     for attempt in (1, 2):
         try:
-            return "ok", _crossprocess_leg(device_type)
+            return ("ok", *_crossprocess_leg(device_type))
         except Exception as e:  # noqa: BLE001 - reported in the tail
             last = f"attempt {attempt}: {type(e).__name__}: {e}"
             print(f"crossproc leg failed ({last})"
                   + ("; retrying once" if attempt == 1 else ""), flush=True)
-    return "failed", last
+    return "failed", last, []
 
 
 def _enforce_crossproc(status: str, detail: str) -> None:
@@ -255,6 +290,7 @@ import json, os
 import numpy as np
 import torch
 from kubeshare_tpu_torch.models.llama import LlamaConfig, init_llama, llama_loss
+from kubeshare_tpu_torch.ops.attention import LAUNCHES
 from kubeshare_tpu_torch.parallel import (
     MeshPlan, comm, make_mesh, make_sharded_train_step, maybe_initialize)
 
@@ -269,9 +305,10 @@ cfg = LlamaConfig(vocab=64, dim=32, layers=1, num_heads=4, num_kv_heads=2,
                   mlp_dim=64, max_seq_len=16, dtype="float32")
 model = init_llama(cfg, generator=torch.Generator(device=joined.device)
                    .manual_seed(0), device=joined.device, trainable=True)
+for name in LAUNCHES:
+    LAUNCHES[name] = 0
 step, model, _ = make_sharded_train_step(
-    lambda m, b: llama_loss(m, b, use_flash=False), model, mesh,
-    learning_rate=1e-3, fsdp=False)
+    llama_loss, model, mesh, learning_rate=1e-3, fsdp=False)
 full = np.random.RandomState(5).randint(0, cfg.vocab, size=(4, 9))
 lo = 2 * mesh.coords["dp"]          # this member draws its dp block only
 loss = float(step.local(torch.tensor(full[lo:lo + 2], device=joined.device)))
@@ -279,7 +316,7 @@ comm.barrier(world)
 json.dump({"process_id": spec.process_id, "devices": joined.world,
            "backend": joined.backend,
            "gathered": gathered.cpu().ravel().tolist(),
-           "mesh": mesh.shape, "loss": loss},
+           "mesh": mesh.shape, "loss": loss, "launches": dict(LAUNCHES)},
           open(os.environ["KS_DRYRUN_OUT"], "w"))
 comm.destroy()
 """
@@ -289,7 +326,7 @@ def _crossprocess_leg(device_type: str) -> str:
     """4 OS processes, one device each: join a world through the gang
     env contract, lay dp 2 x tp 2 over it, run one sharded flagship step
     on a dp-split global batch, and all-gather the process ids. Returns
-    the tail's fragment."""
+    the tail's fragment and each process' kernel launches."""
     if os.environ.get("KS_DRYRUN_FORCE_CROSSPROC_FAIL") == "1":
         # test hook: a forced failure cannot yield a clean tail
         raise AssertionError("forced failure (KS_DRYRUN_FORCE_CROSSPROC_FAIL)")
@@ -347,4 +384,5 @@ def _crossprocess_leg(device_type: str) -> str:
         raise AssertionError(f"cross-process losses differ: {results}")
     return (f"dp=2xtp=2 over torch.distributed ({results[0]['backend']}): "
             f"allgather {results[0]['gathered']} "
-            f"loss={results[0]['loss']:.4f}")
+            f"loss={results[0]['loss']:.4f}",
+            [r["launches"] for r in results])

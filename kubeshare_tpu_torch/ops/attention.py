@@ -14,6 +14,12 @@ kernel or raises; nothing falls back.
 Shapes as in the reference: q [B, H, Tq, D], k/v [B, Hkv, Tk, D] with H
 a multiple of Hkv (grouped-query attention). The kernels read each kv
 head once for its H/Hkv query heads; K/V are never repeated.
+
+Head dims: the kernels are built for D in ``FLASH_HEAD_DIMS``; any other
+D up to 128 runs them at the next of those, with q, k, v (and, in the
+backward, out and dO) zero-padded on the last axis and the results
+sliced back (``padded_forward``, ``padded_backward``). The scale stays
+1/sqrt(D) of the true D. A CUDA tensor with D > 128 raises.
 """
 
 from __future__ import annotations
@@ -28,9 +34,10 @@ _NEG_INF = -1e30
 
 # Head dims the CUDA kernels are compiled for (a template argument of
 # csrc/flash_*.cu; 32 is the reference's own Llama entry and workload
-# CLI). On CUDA tensors any other head dim raises: nothing pads or falls
-# back.
-FLASH_HEAD_DIMS = (32, 64, 128)
+# CLI, 16 its dry run's bf16 Llama). Any other head dim up to the last
+# runs the kernels of the next one up on zero-padded inputs; above it a
+# CUDA tensor raises: nothing falls back to plain attention.
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
 # The key-tile width of the float32 kernels (BK in csrc/flash_common.cuh).
 # The plain versions walk the same tiles, so the float32 forward's
 # online-softmax rescaling happens at the same places; the bf16 forward
@@ -373,6 +380,56 @@ def flash_backward_reference(q, k, v, out, lse, do, g_lse=None,
     return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def native_head_dim(head_dim: int) -> int:
+    """The head dim whose kernels run a head dim of ``head_dim``: the
+    smallest of ``FLASH_HEAD_DIMS`` that holds it. ValueError above the
+    largest."""
+    for native in FLASH_HEAD_DIMS:
+        if head_dim <= native:
+            return native
+    raise ValueError(f"the flash kernels take head dims up to "
+                     f"{FLASH_HEAD_DIMS[-1]}, got {head_dim}")
+
+
+def pad_head_dim(size: int, *tensors):
+    """``tensors`` zero-padded on the last axis to ``size`` (each one
+    as it is where it already has that size)."""
+    return tuple(t if t.shape[-1] == size else
+                 torch.nn.functional.pad(t, (0, size - t.shape[-1]))
+                 for t in tensors)
+
+
+def padded_forward(forward, q, k, v, causal: bool, scale: float,
+                   window: int):
+    """``forward(q, k, v, causal, scale, window) -> (out, lse)`` at the
+    native head dim of q's: q, k and v zero-padded to it, out sliced
+    back; lse is unchanged (zero columns add nothing to q.k). ``scale``
+    must be given: 1/sqrt(D) of the true D."""
+    head_dim = q.shape[-1]
+    native = native_head_dim(head_dim)
+    if native == head_dim:
+        return forward(q, k, v, causal, scale, window)
+    out, lse = forward(*pad_head_dim(native, q, k, v), causal, scale,
+                       window)
+    return out[..., :head_dim].contiguous(), lse
+
+
+def padded_backward(backward, q, k, v, out, lse, do, g_lse, causal: bool,
+                    scale: float, window: int):
+    """``backward(q, k, v, out, lse, do, g_lse, causal, scale, window)
+    -> (dq, dk, dv)`` at the native head dim of q's: q, k, v, out and dO
+    zero-padded to it (rowsum(dO * O) is unchanged), the gradients
+    sliced back. The lse and its cotangent are per row: as they are."""
+    head_dim = q.shape[-1]
+    native = native_head_dim(head_dim)
+    if native == head_dim:
+        return backward(q, k, v, out, lse, do, g_lse, causal, scale, window)
+    grads = backward(*pad_head_dim(native, q, k, v, out), lse,
+                     *pad_head_dim(native, do), g_lse, causal, scale,
+                     window)
+    return tuple(g[..., :head_dim].contiguous() for g in grads)
+
+
 def _bind(lib_name: str, fn_name: str, n_ptrs: int, n_extra: int = 0):
     """Entry ``fn_name`` of kernel library ``lib_name`` (built at first
     use), with its ctypes signature: ``n_ptrs`` tensor pointers, then B H
@@ -522,12 +579,14 @@ def _device_route(q) -> bool:
 def flash_forward(q, k, v, causal: bool = True,
                   scale: Optional[float] = None, window: int = 0):
     """``(out, lse)`` of flash attention: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. Takes any Tq, Tk (the
-    kernel masks ragged tiles itself); causal needs Tq <= Tk."""
+    tensors (any head dim up to 128, padded to the next native one), the
+    plain version for CPU tensors. Takes any Tq, Tk (the kernel masks
+    ragged tiles itself); causal needs Tq <= Tk."""
     _check_flash_args(q, k, v, causal, window)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if _device_route(q):
-        return _flash_forward_cuda(q, k, v, causal, scale, window)
+        return padded_forward(_flash_forward_cuda, q, k, v, causal, scale,
+                              window)
     return flash_attention_reference(q, k, v, causal, scale, window)
 
 
@@ -540,8 +599,8 @@ def flash_backward(q, k, v, out, lse, do, g_lse=None, causal: bool = True,
     _check_flash_args(q, k, v, causal, window)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if _device_route(q):
-        return _flash_backward_cuda(q, k, v, out, lse, do, g_lse, causal,
-                                    scale, window)
+        return padded_backward(_flash_backward_cuda, q, k, v, out, lse, do,
+                               g_lse, causal, scale, window)
     return flash_backward_reference(q, k, v, out, lse, do, g_lse, causal,
                                     scale, window)
 
@@ -587,12 +646,12 @@ def flash_attention_with_lse(q, k, v, causal: bool = True,
 
 
 def flash_eligible(q_shape, k_shape, causal: bool) -> bool:
-    """Whether the CUDA kernels take these shapes: a head dim they are
-    built for and, when causal, Tq <= Tk. Any length, ragged or short:
-    the kernels mask partial tiles themselves. (The reference's rule
-    also asks for Tq >= 128 and tiles dividing T; the kernels need
-    neither.)"""
-    return (q_shape[-1] in FLASH_HEAD_DIMS
+    """Whether the CUDA kernels take these shapes: a head dim up to
+    the largest they are built for (others are padded to the next one)
+    and, when causal, Tq <= Tk. Any length, ragged or short: the kernels
+    mask partial tiles themselves. (The reference's rule also asks for
+    Tq >= 128 and tiles dividing T; the kernels need neither.)"""
+    return (1 <= q_shape[-1] <= FLASH_HEAD_DIMS[-1]
             and (not causal or q_shape[-2] <= k_shape[-2]))
 
 
@@ -607,9 +666,9 @@ def mha(q, k, v, causal: bool = True, use_flash: Optional[bool] = None,
         if use_flash and not flash_eligible(q.shape, k.shape, causal):
             raise ValueError(
                 f"the flash kernels do not take q {tuple(q.shape)}, k "
-                f"{tuple(k.shape)} (causal={causal}): head dims "
-                f"{FLASH_HEAD_DIMS}, causal Tq <= Tk; use_flash=False runs "
-                "plain attention")
+                f"{tuple(k.shape)} (causal={causal}): head dims up to "
+                f"{FLASH_HEAD_DIMS[-1]}, causal Tq <= Tk; use_flash=False "
+                "runs plain attention")
     if use_flash:
         return flash_attention(q, k, v, causal, window=window)
     return attention(q, k, v, causal, window=window)

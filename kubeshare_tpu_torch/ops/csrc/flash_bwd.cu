@@ -98,6 +98,12 @@
 // float32 inputs have no tensor-core path with float32 products (TF32
 // would change the numbers), so the float32 kernels use FMAs on the CUDA
 // cores.
+// Head dims: instances for 16, 32, 64 and 128. At D = 16 the bf16
+// kernels' tiles are one 16-column box with the 32-byte swizzle, S and dP
+// a single k16 step, and dS K, P^T dO and dS^T Q m64n16k16 products; the
+// float32 kernels give each thread one output column. The wrapper
+// (../attention.py) zero-pads any other head dim up to 128 to the next
+// of these and slices dq, dk and dv back.
 
 #include <math.h>
 
@@ -1230,6 +1236,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     return launch_dq<32>(is_bf16, q, k, v, dout, lse, delta, dq, w, blocks,
                          batch, heads, kv_heads, t_q, t_k, causal, scale,
                          window, s);
+  if (head_dim == 16)
+    return launch_dq<16>(is_bf16, q, k, v, dout, lse, delta, dq, w, blocks,
+                         batch, heads, kv_heads, t_q, t_k, causal, scale,
+                         window, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1258,6 +1268,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                           causal, scale, window, s);
   if (head_dim == 32)
     return launch_dkv<32>(is_bf16, q, k, v, dout, lse, delta, dk, dv, w, sc,
+                          ct, blocks, batch, heads, kv_heads, t_q, t_k,
+                          causal, scale, window, s);
+  if (head_dim == 16)
+    return launch_dkv<16>(is_bf16, q, k, v, dout, lse, delta, dk, dv, w, sc,
                           ct, blocks, batch, heads, kv_heads, t_q, t_k,
                           causal, scale, window, s);
   return (int)cudaErrorInvalidValue;

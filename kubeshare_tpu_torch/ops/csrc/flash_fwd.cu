@@ -48,7 +48,9 @@
 //   (S: 64 x 128, O: 64 x D a warpgroup) then fit without spills.
 // - S = Q K^T is a wgmma with both operands in swizzled shared memory
 //   (64-column boxes with the 128-byte swizzle at D = 64 and 128, one
-//   32-column box with the 64-byte swizzle at D = 32; hopper.cuh Tile);
+//   32-column box with the 64-byte swizzle at D = 32, one 16-column box
+//   with the 32-byte swizzle at D = 16, where S is a single k16 step and
+//   P V an m64n16k16 product; hopper.cuh Tile);
 //   O += P V a wgmma (N = D) with P from registers (the S accumulator's
 //   layout is the A fragment's, so P is packed to bf16 in place) and V
 //   MN-major from shared memory (the transpose bit).
@@ -73,6 +75,10 @@
 // float32 inputs have no tensor-core path with float32 products (TF32
 // would change the numbers), so flash_fwd_f32 does them with FMAs on the
 // CUDA cores (67 TFLOP/s peak).
+// Head dims: instances for 16, 32, 64 and 128, bf16 and float32. The
+// wrapper (../attention.py) zero-pads any other head dim up to 128 to the
+// next of these and slices the output back; zero columns add nothing to
+// Q K^T, and V's give zero output columns.
 
 #include <math.h>
 
@@ -651,6 +657,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                       kv_heads, t_q, t_k, causal, scale, window, s);
   if (head_dim == 32)
     return launch<32>(is_bf16, q, k, v, out, lse, w, blocks, batch, heads,
+                      kv_heads, t_q, t_k, causal, scale, window, s);
+  if (head_dim == 16)
+    return launch<16>(is_bf16, q, k, v, out, lse, w, blocks, batch, heads,
                       kv_heads, t_q, t_k, causal, scale, window, s);
   return (int)cudaErrorInvalidValue;
 }

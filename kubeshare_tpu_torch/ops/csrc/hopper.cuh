@@ -9,11 +9,15 @@
 // by one TMA box with the swizzle as wide as a box's row (a box's inner
 // extent is at most the swizzle's width): COLS = 64 with the 128-byte
 // swizzle for head dims 64 and 128, COLS = 32 with the 64-byte swizzle
-// for head dim 32 (Tile<D>). Row r sits at r * ROW_BYTES and its 16-byte
-// chunk c at chunk c ^ (r % 8) (128-byte) or c ^ ((r / 2) % 4) (64-byte).
-// Every box starts on a multiple of 8 rows (1024 or 512 bytes, the
-// swizzle's period), so a wgmma descriptor may point anywhere inside it
-// by plain address arithmetic.
+// for head dim 32, COLS = 16 with the 32-byte swizzle for head dim 16
+// (Tile<D>). Row r sits at r * ROW_BYTES and its 16-byte chunk c at chunk
+// c ^ (r % 8) (128-byte), c ^ ((r / 2) % 4) (64-byte) or c ^ ((r / 4) % 2)
+// (32-byte). Every box starts on a multiple of 8 rows (1024, 512 or 256
+// bytes, the swizzle's period), so a wgmma descriptor may point anywhere
+// inside it by plain address arithmetic. Nothing addresses a tile by
+// hand: TMA writes the boxes and wgmma reads them through descriptors
+// that name the same swizzle, so the pattern lives in two places only
+// (tensor_map and sw_desc below).
 
 #pragma once
 
@@ -24,13 +28,16 @@
 
 namespace {
 
-// bf16 columns of one swizzled TMA box of a head dim d row
-constexpr int box_cols(int d) { return d >= 64 ? 64 : 32; }
+// bf16 columns of one swizzled TMA box of a head dim d row: 64, or the
+// whole row at head dims 32 and 16
+constexpr int box_cols(int d) { return d >= 64 ? 64 : d; }
 
 // The tiling of a head dim D: COLS columns a box (box_cols), BOXES boxes
 // a row, ROW_BYTES a box row (the swizzle's width), GROUP_BYTES for 8
 // rows (the swizzle's period, the stride between 8-row groups), KSTEPS
-// k16 steps (32 bytes each) in a box.
+// k16 steps (32 bytes each) in a box: one at head dim 16, whose products
+// over D are then a single k16 step and whose products with N = D
+// (P V, dS K, P^T dO, dS^T Q) are m64n16k16.
 template <int D>
 struct Tile {
   static constexpr int COLS = box_cols(D);
@@ -38,8 +45,8 @@ struct Tile {
   static constexpr int ROW_BYTES = COLS * 2;
   static constexpr int GROUP_BYTES = 8 * ROW_BYTES;
   static constexpr int KSTEPS = COLS / 16;
-  static_assert(D == 32 || D == 64 || D == 128,
-                "the flash kernels are built for head dims 32, 64, 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "the flash kernels are built for head dims 16, 32, 64, 128");
   static_assert(BOXES >= 1 && BOXES * COLS == D, "a row is whole boxes");
 };
 
@@ -159,7 +166,8 @@ __device__ __forceinline__ void regs_alloc() {
 
 // Descriptor of a swizzled operand in shared memory whose box rows are
 // ROW_BYTES wide (128: the 128-byte swizzle, layout type 1; 64: the
-// 64-byte swizzle, layout type 2). lbo / sbo in bytes. K-major (the depth
+// 64-byte swizzle, layout type 2; 32: the 32-byte swizzle, layout type
+// 3; bits 62-63). lbo / sbo in bytes. K-major (the depth
 // contiguous, as Q and K): sbo is the stride between 8-row groups (8 box
 // rows) and lbo is unused. MN-major (the output columns contiguous, as V
 // in P V): lbo is the stride between column boxes and sbo between groups
@@ -167,11 +175,13 @@ __device__ __forceinline__ void regs_alloc() {
 template <int ROW_BYTES>
 __device__ __forceinline__ uint64_t sw_desc(const void* p, uint32_t lbo,
                                             uint32_t sbo) {
-  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "128- or 64-byte rows");
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64 || ROW_BYTES == 32,
+                "128-, 64- or 32-byte rows");
+  constexpr uint64_t layout = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
   uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-  d |= (ROW_BYTES == 128 ? 1ull : 2ull) << 62;  // the swizzle's layout type
+  d |= layout << 62;  // the swizzle's layout type
   return d;
 }
 
@@ -220,6 +230,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define HK_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define HK_F16(d, i) \
   HK_F4(d, i), HK_F4(d, i + 4), HK_F4(d, i + 8), HK_F4(d, i + 12)
+#define HK_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define HK_R16                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HK_R32                                                              \
@@ -270,6 +281,20 @@ template <int N>
 struct WgmmaRS;
 
 template <>
+struct WgmmaRS<16> {
+  __device__ __forceinline__ static void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " HK_R8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : HK_F4(d, 0), HK_F4(d, 4)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
 struct WgmmaRS<32> {
   __device__ __forceinline__ static void run(float (&d)[16],
                                              const uint32_t (&a)[4],
@@ -313,6 +338,7 @@ struct WgmmaRS<128> {
 
 #undef HK_F4
 #undef HK_F16
+#undef HK_R8
 #undef HK_R16
 #undef HK_R32
 #undef HK_R64
@@ -344,7 +370,7 @@ EncodeTiledFn encode_tiled() {
 // The 3-D map (D, rows, matrices) of a contiguous [matrices, rows, D] bf16
 // tensor, read in boxes of box_cols(D) columns x box_rows rows of one
 // matrix with the swizzle as wide as a box row (128 bytes at D >= 64, 64
-// at D = 32); rows past `rows` read as zeros.
+// at D = 32, 32 at D = 16); rows past `rows` read as zeros.
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int d, int rows,
                        int matrices, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
@@ -358,7 +384,9 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int d, int rows,
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                   : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -12,7 +12,10 @@ carries state from a surviving rank) to every member, which is what the
 reference's replicated placement on the new mesh does. A rank outside
 the set idles: its ``step`` does nothing and returns None. Each resize
 bumps ``generation`` (TorchElastic's restart counter); ``steps`` counts
-the updates, and a joining member takes the survivors' count.
+the updates, and a joining member takes the survivors' count. A
+checkpointed run resumes through ``opt_state`` (an AdamW ``state_dict``
+as ``models/checkpoint.py::restore_checkpoint`` returns it) and
+``steps``, as the reference's does.
 """
 
 from __future__ import annotations
@@ -36,9 +39,12 @@ class ElasticTrainer:
 
     def __init__(self, loss_fn: Callable, model: nn.Module,
                  learning_rate: float = 1e-3,
-                 ranks: Optional[Sequence[int]] = None, steps: int = 0):
+                 ranks: Optional[Sequence[int]] = None,
+                 opt_state: Optional[dict] = None, steps: int = 0):
         """``ranks``: the first members (default: every rank of the
-        world); ``steps`` resumes a checkpointed run's count."""
+        world); ``opt_state`` (an AdamW ``state_dict``) and ``steps``
+        resume a checkpointed run. A member given no ``opt_state``
+        receives the survivor's at the first resize's broadcast."""
         self.loss_fn = loss_fn
         self.model = model
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -46,6 +52,8 @@ class ElasticTrainer:
             self.params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=1e-4)
         self._init_state()
+        if opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
         self.rank = dist.get_rank() if dist.is_initialized() else 0
         world = dist.get_world_size() if dist.is_initialized() else 1
         self.ranks: list = []

@@ -65,6 +65,14 @@
 // break it or deadlock. It passes through ungated and uncounted; the
 // cuGraphLaunch that replays the graph is gated instead.
 //
+// The pod's card: the scheduler names it by NVML uuid in
+// TPU_VISIBLE_CHIPS (a comma-separated list; libtpu honours it on a TPU).
+// A constructor maps it onto CUDA_VISIBLE_DEVICES when the library is
+// loaded, before any cuInit in the process (the driver reads the
+// variable there), by utils/device.py's rule: unset or empty, it takes
+// the list; equal, it is kept; another value is left as it is, with an
+// error line. The stats JSON records the decision.
+//
 // Env: KUBESHARE_POD_MANAGER_PORT / _IP (default 127.0.0.1) name the
 // pod's tpu-pmgr, KUBESHARE_POD_NAME the pod, KUBESHARE_HBM_SOFT=1 soft
 // caps. Without a manager port the library passes every call through:
@@ -436,6 +444,32 @@ void init() {
 }
 
 void ensure_init() { pthread_once(&g_init_once, init); }
+
+// The device contract's decision (none, set, kept or conflict) and the
+// contract's list. Constant- and zero-initialised: the constructor below
+// may run before this library's dynamic initialisers.
+const char* g_visible_decision = "none";
+char g_visible_chips[1024];
+
+__attribute__((constructor)) void apply_visible_chips() {
+  const char* chips = std::getenv("TPU_VISIBLE_CHIPS");
+  if (chips == nullptr || *chips == '\0') return;
+  std::snprintf(g_visible_chips, sizeof(g_visible_chips), "%s", chips);
+  const char* current = std::getenv("CUDA_VISIBLE_DEVICES");
+  if (current == nullptr || *current == '\0') {
+    ::setenv("CUDA_VISIBLE_DEVICES", chips, 1);
+    g_visible_decision = "set";
+    logf("pid %d: CUDA_VISIBLE_DEVICES=%s from TPU_VISIBLE_CHIPS",
+         static_cast<int>(::getpid()), chips);
+  } else if (std::strcmp(current, chips) == 0) {
+    g_visible_decision = "kept";
+  } else {
+    g_visible_decision = "conflict";
+    logf("error: pid %d: CUDA_VISIBLE_DEVICES=%s disagrees with the "
+         "scheduler's TPU_VISIBLE_CHIPS=%s; left as it is",
+         static_cast<int>(::getpid()), current, chips);
+  }
+}
 
 template <typename F>
 F real_of(const char* name) {
@@ -950,6 +984,10 @@ const char* kubeshare_cuda_interposer_stats(void) {
   std::string out = head;
   out += "\"pod\": \"";
   json_escape(&out, S.pod.c_str());
+  out += "\", \"visible_devices\": \"";
+  out += g_visible_decision;
+  out += "\", \"visible_chips\": \"";
+  json_escape(&out, g_visible_chips);
   out += "\", \"functions\": {";
   // launches by kernel name (names repeat across CUfunction handles of
   // one kernel in several modules: sum them)

@@ -34,6 +34,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..constants import ENV_HBM_LIMIT, ENV_POD_MANAGER_PORT
+from ..utils.device import honour_visible_chips
 from .client import TokenClient, TokenProtocolError
 
 
@@ -265,8 +266,11 @@ def install_gate(
 ) -> SharedChipGate:
     """Build the process-wide gate from the env the scheduler injected
     (KUBESHARE_POD_MANAGER_PORT / KUBESHARE_HBM_LIMIT_BYTES). Without a
-    manager port (whole-device or dev run), the gate is a no-op."""
+    manager port (whole-device or dev run), the gate is a no-op. The
+    pod's device contract (TPU_VISIBLE_CHIPS) is applied first, so the
+    pod sees the card it was given (``utils/device.py``)."""
     global _GATE
+    honour_visible_chips()
     if port is None:
         port = int(os.environ.get(ENV_POD_MANAGER_PORT, "0") or "0")
     if hbm_limit is None:

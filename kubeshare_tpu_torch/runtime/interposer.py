@@ -24,7 +24,10 @@ import os
 import subprocess
 from typing import Dict, Mapping, Optional
 
-from ..constants import LIBRARY_PATH
+from ..constants import (
+    ENV_CUDA_VISIBLE_DEVICES, INTERPOSER_LIBRARY, LIBRARY_PATH,
+)
+from ..utils.device import visible_devices_for
 from .native import interposer_path
 
 ENV_REAL = "KUBESHARE_CUDA_REAL"
@@ -44,7 +47,7 @@ def find_interposer() -> Optional[str]:
     ``runtime/native.py::build_interposer``), then the node's library
     directory. None when neither exists."""
     for candidate in (str(interposer_path()),
-                      os.path.join(LIBRARY_PATH, LIBRARY_NAME + ".so")):
+                      os.path.join(LIBRARY_PATH, INTERPOSER_LIBRARY)):
         if os.path.exists(candidate):
             return os.path.abspath(candidate)
     return None
@@ -95,10 +98,19 @@ def enable(env: Optional[Mapping[str, str]] = None,
     ``KUBESHARE_POD_NAME``, ``KUBESHARE_HBM_SOFT``) must be in ``env``;
     without a manager port the interposer passes every call through.
 
-    Returns a copy of ``env`` unchanged when either library is missing,
-    so a pod without the interposer still runs, without driver-level
-    isolation: the caller fails open, as the reference does."""
+    The scheduler's device contract (``TPU_VISIBLE_CHIPS``) becomes the
+    child's ``CUDA_VISIBLE_DEVICES`` by ``utils/device.py``'s rule, with
+    or without the interposer; a ``CUDA_VISIBLE_DEVICES`` that names
+    other devices raises.
+
+    Returns a copy of ``env`` without the interposer when either library
+    is missing, so a pod without the interposer still runs, without
+    driver-level isolation: the caller fails open, as the reference
+    does."""
     out = dict(os.environ if env is None else env)
+    visible = visible_devices_for(out)
+    if visible is not None:
+        out[ENV_CUDA_VISIBLE_DEVICES] = visible
     shim = interposer or find_interposer()
     real = real_libcuda or find_real_libcuda(out)
     if not shim or not real or not os.path.exists(shim) \

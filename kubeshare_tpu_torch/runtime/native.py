@@ -15,19 +15,29 @@
   once more against the real ``<cuda.h>`` (``-DKUBESHARE_CHECK_CUDA_H``),
   whose ``static_assert``s fail the build on a prototype that disagrees
   with the driver's; it needs the CUDA toolkit's headers.
+- ``install_interposer(dest)``: that build, written atomically (a
+  temporary file, then a rename) to ``dest/libcuda_interposer.so``, the
+  name the admission webhook preloads from the node's library directory
+  (``cluster/webhook.py``) and ``runtime/interposer.py::find_interposer``
+  looks for. ``python -m kubeshare_tpu_torch.runtime.native --install
+  DIR`` runs it: the node daemon's install step, as the reference's
+  initContainer copies its PJRT shim there.
 
 Nothing is built at import time.
 """
 
 from __future__ import annotations
 
+import argparse
 import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional, Sequence
 
+from ..constants import INTERPOSER_LIBRARY
 from ..ops._build import BUILD_DIR
 
 REPO = Path(__file__).resolve().parents[2]
@@ -107,3 +117,41 @@ def build_interposer(check_cuda_h: bool = False) -> Path:
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     return out
+
+
+
+def install_interposer(dest) -> Path:
+    """Build the interposer (``build_interposer``) and write it to
+    ``dest/libcuda_interposer.so`` through a temporary file in ``dest``
+    and a rename, so a pod that starts meanwhile preloads the old
+    library or the new one, never half of one. Returns the path."""
+    built = build_interposer()
+    dest = Path(dest)
+    dest.mkdir(parents=True, exist_ok=True)
+    out = dest / INTERPOSER_LIBRARY
+    tmp = dest / f".{INTERPOSER_LIBRARY}.{os.getpid()}.tmp"
+    try:
+        shutil.copyfile(built, tmp)
+        os.chmod(tmp, 0o755)
+        os.replace(tmp, out)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m kubeshare_tpu_torch.runtime.native",
+        description="Build the CUDA interposer and install it into a "
+                    "library directory.")
+    parser.add_argument("--install", metavar="DIR", required=True,
+                        help="the node's library directory, e.g. "
+                             "/kubeshare/library")
+    args = parser.parse_args(argv)
+    print(install_interposer(args.install), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -203,7 +203,10 @@ def test_mha_dispatch_rule(monkeypatch):
     ((1, 4, 333, 128), (1, 2, 777, 128), True, True),     # causal Tq < Tk
     ((1, 4, 777, 128), (1, 2, 333, 128), True, False),    # causal Tq > Tk
     ((1, 4, 777, 128), (1, 2, 333, 128), False, True),
-    ((1, 4, 256, 96), (1, 2, 256, 96), True, False),      # head dim 96
+    ((1, 4, 256, 96), (1, 2, 256, 96), True, True),       # 96: padded
+    ((1, 4, 256, 16), (1, 2, 256, 16), True, True),       # head dim 16
+    ((1, 4, 256, 8), (1, 2, 256, 8), True, True),         # 8: padded
+    ((1, 4, 256, 160), (1, 2, 256, 160), True, False),    # over 128
     ((1, 4, 256, 32), (1, 2, 256, 32), False, True),      # head dim 32
 ])
 def test_flash_eligible_is_what_the_kernels_take(q_shape, k_shape, causal,

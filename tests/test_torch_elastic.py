@@ -5,6 +5,13 @@ against kubeshare_tpu/parallel/elastic.py on the virtual CPU mesh
 reference resizes 4 -> 2 -> 8 devices; the world has 4 ranks, so both
 sides resize 4 -> 2 -> 4.
 
+The same world also runs ``tests/test_checkpoint.py``'s kill -> resize
+-> checkpoint -> restore -> resume sequence (4 members, 3 steps; 2
+members, 3 steps; saved through ``models/checkpoint.py``, restored, and
+resumed by a new trainer on 3 members with the AdamW state and the step
+count, 3 steps on the first 30 rows), on this file's model, against the
+reference's trainer and checkpoint on the same sequence.
+
 Tolerance, float32: the loss trajectory 1e-5 abs step for step, and the
 weights at the end 1e-5 abs (the members' gradients are summed in
 another order than the reference's sharded batch). Weights from
@@ -52,9 +59,11 @@ def _reference(devices):
 
 
 @pytest.fixture(scope="module")
-def world():
+def world(tmp_path_factory):
+    directory = str(tmp_path_factory.mktemp("elastic_ckpt"))
     return run_world(ranks.elastic_cases, N,
-                     args=(*_weights(), *_data(16, 1), *_data(8, 2), LR),
+                     args=(*_weights(), *_data(16, 1), *_data(8, 2), LR,
+                           *_data(32, 3), directory),
                      timeout=120, device_type="cpu")
 
 
@@ -109,3 +118,45 @@ def test_resize_matches_single_device_math(world):
 def test_bad_batch_size_rejected(world):
     for doc in world:
         assert "not divisible by dp=4" in doc["bad_batch"]
+
+
+def test_kill_resize_checkpoint_restore_resume(world, tmp_path):
+    from kubeshare_tpu.models.checkpoint import (
+        latest_checkpoint, restore_checkpoint, save_checkpoint,
+    )
+
+    devices = jax.devices()
+    x, y = (jnp.asarray(a) for a in _data(32, 3))
+    trainer = _reference(devices[:4])
+    want = [float(trainer.step((x, y))) for _ in range(3)]
+    trainer.resize(devices[:2])
+    want += [float(trainer.step((x, y))) for _ in range(3)]
+    save_checkpoint(str(tmp_path), trainer.steps, trainer.params,
+                    trainer.opt_state)
+    assert latest_checkpoint(str(tmp_path)) == trainer.steps
+    step, params, opt_state = restore_checkpoint(
+        str(tmp_path), jax.device_get(trainer.params),
+        jax.device_get(trainer.opt_state))
+    reborn = JElastic(trainer.loss_fn, params, learning_rate=LR,
+                      devices=devices[:3], opt_state=opt_state, steps=step)
+    assert reborn.dp == 3 and reborn.steps == step
+    want += [float(reborn.step((x[:30], y[:30]))) for _ in range(3)]
+    for rank, doc in enumerate(world):
+        got = doc["resume"]
+        assert got["saved"] == trainer.steps == 6
+        assert got["restored_steps"] == step
+        assert got["dp"] == [2, 3] and got["generation"] == [1, 0]
+        losses = got["losses"]
+        if rank == 3:
+            # outside both the 2-member and the 3-member sets
+            assert losses[3:] == [None] * 6
+            np.testing.assert_allclose(losses[:3], want[:3], rtol=0,
+                                       atol=TOL)
+            continue
+        if rank == 2:
+            assert losses[3:6] == [None] * 3
+            losses = losses[:3] + want[3:6] + losses[6:]
+        np.testing.assert_allclose(losses, want, rtol=0, atol=TOL)
+        assert got["steps"] == [6 if rank < 2 else 3, reborn.steps]
+        assert reborn.steps == 9
+    assert want[-1] < want[0]

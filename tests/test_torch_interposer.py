@@ -4,7 +4,9 @@ over a mock libcuda, under live ``tpu-schd`` + ``tpu-pmgr``.
 The interposer is built with g++ (``runtime/native.py``), the mock driver
 and a test application here, also with g++. The mock counts every call
 and hands out fake pointers; it is loaded through ``KUBESHARE_CUDA_REAL``
-and is also the application's ``libcuda.so.1``. The application reaches
+and is also the application's ``libcuda.so.1``; its ``cuInit`` records
+``CUDA_VISIBLE_DEVICES`` as the driver would read it
+(``mock_visible_at_init``). The application reaches
 the driver by all three lookup paths the CUDA stack uses: a direct link
 (calls bind to the preloaded hooks), ``dlopen`` + ``dlsym`` by name, and
 ``cuGetProcAddress_v2`` with and without the per-thread flag. Its stream
@@ -63,6 +65,7 @@ static std::map<std::string, long long> counts;
 static double busy_until = 0;          // the mock device's queue
 static CUdeviceptr next_ptr = 0x100000;
 static std::string stats_buf;
+static std::string visible_at_init = "(no cuInit)";
 
 static double now_ms() {
   using namespace std::chrono;
@@ -127,6 +130,18 @@ CUresult cuMemCreate(unsigned long long* h, size_t b, const void*, unsigned long
   CUresult r = alloc("cuMemCreate", &p, b);
   *h = p;
   return r;
+}
+// the real driver reads CUDA_VISIBLE_DEVICES here, once a process
+CUresult cuInit(unsigned) {
+  bump("cuInit");
+  const char* v = std::getenv("CUDA_VISIBLE_DEVICES");
+  std::lock_guard<std::mutex> lock(mu);
+  visible_at_init = v ? v : "(unset)";
+  return 0;
+}
+const char* mock_visible_at_init() {
+  std::lock_guard<std::mutex> lock(mu);
+  return visible_at_init.c_str();
 }
 CUresult cuMemFree_v2(CUdeviceptr) { bump("cuMemFree_v2"); return 0; }
 CUresult cuMemFreeAsync(CUdeviceptr, CUstream) { bump("cuMemFreeAsync"); return 0; }
@@ -277,7 +292,9 @@ CUresult cuMemFree_v2(CUdeviceptr);
 CUresult cuMemFreeAsync(CUdeviceptr, CUstream);
 CUresult cuMemRelease(unsigned long long);
 CUresult cuStreamDestroy_v2(CUstream);
+CUresult cuInit(unsigned);
 const char* mock_stats();
+const char* mock_visible_at_init();
 }
 
 static void* lookup(const std::string& via, const char* name) {
@@ -351,6 +368,10 @@ int main(int argc, char** argv) {
       std::printf("{\"free_ptr\": %d}\n", rc);
     } else if (cmd == "destroy") {
       cuStreamDestroy_v2(reinterpret_cast<CUstream>(std::strtoull(argv[++i], nullptr, 0)));
+    } else if (cmd == "init") {  // cuInit, then what the driver read
+      CUresult rc = cuInit(0);
+      std::printf("{\"init\": %d, \"visible\": \"%s\"}\n", rc,
+                  mock_visible_at_init());
     } else if (cmd == "stats") {
       typedef const char* (*StatsFn)();
       StatsFn shim = reinterpret_cast<StatsFn>(dlsym(RTLD_DEFAULT, "kubeshare_cuda_interposer_stats"));

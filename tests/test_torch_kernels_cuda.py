@@ -68,6 +68,19 @@ D32_CASES = [
     ((1, 4, 1, 70, 333, 32), True, 0, False),
 ]
 
+# head dim 16 (one 16-column box with the 32-byte swizzle; the reference's
+# dry-run Llama) and head dims run padded to the next native one: 8 (the
+# dry run's float32 legs) and 24 to 16 and 32, 48 to 64, 96 to 128
+SMALL_D_CASES = [
+    ((2, 4, 2, 17, 17, 16), True, 0, True),
+    ((1, 8, 2, 300, 300, 16), True, 37, False),
+    ((1, 4, 1, 70, 333, 16), False, 0, True),
+    ((1, 4, 2, 256, 256, 8), True, 0, True),
+    ((1, 4, 2, 200, 200, 24), True, 64, False),
+    ((1, 4, 2, 128, 320, 48), False, 0, True),
+    ((1, 8, 2, 256, 256, 96), True, 0, True),
+]
+
 # what the bf16 backward's design adds: more dk/dv items than SMs (2 * 8
 # kv heads * 4 key tiles * 4 query heads = 256), a group of 8 query heads
 # summed in order and a group of one written directly, a window narrower
@@ -81,7 +94,7 @@ BWD_CASES = CASES + [
     ((1, 4, 2, 256, 256, 128), True, 17, True),
     ((1, 8, 2, 200, 200, 128), True, 0, False),
     ((1, 4, 2, 100, 300, 64), True, 0, True),
-] + D32_CASES
+] + D32_CASES + SMALL_D_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -118,7 +131,7 @@ def test_backward_kernels_match_plain_version(cuda, dtype, shape, causal,
 FWD_CASES = [case[:3] for case in CASES] + [
     ((1, 8, 2, 17, 17, 128), True, 0),
     ((2, 32, 8, 512, 512, 128), True, 0),
-] + [case[:3] for case in D32_CASES]
+] + [case[:3] for case in D32_CASES + SMALL_D_CASES]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -219,16 +232,28 @@ def test_autograd_launches_the_backward_kernels(cuda):
 
 
 def test_head_dim_outside_the_kernels_raises(cuda):
-    q, k, v, do, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 96, 4)
+    """Above 128 the wrappers raise before any launch, forward and
+    backward alike."""
+    q, k, v, do, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 160, 4)
     out = torch.zeros_like(q)
     lse = torch.zeros(1, 2, 64, 1, device=cuda)
+    before = dict(tattn.LAUNCHES)
     with pytest.raises(ValueError, match="head dims"):
         tattn.flash_backward(q, k, v, out, lse, do)
+    with pytest.raises(ValueError, match="head dims"):
+        tattn.flash_forward(q, k, v)
+    assert tattn.LAUNCHES == before
 
 
 def test_mha_refuses_head_dim_outside_the_kernels(cuda):
-    """On the card mha never drops to plain attention unasked."""
-    q, k, v, _, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 96, 6)
+    """On the card mha never drops to plain attention unasked: above
+    128 it raises, and at 8 and 96 (padded) it launches the kernel."""
+    for d in (8, 96):
+        q, k, v, _, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, d, 6)
+        before = tattn.LAUNCHES["flash_fwd"]
+        assert tattn.mha(q, k, v).shape == q.shape
+        assert tattn.LAUNCHES["flash_fwd"] == before + 1
+    q, k, v, _, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 160, 6)
     with pytest.raises(ValueError, match="flash kernels do not take"):
         tattn.mha(q, k, v)
     assert tattn.mha(q, k, v, use_flash=False).shape == q.shape

@@ -62,6 +62,28 @@ def test_package_imports_with_jax_blocked():
     assert int(out.stdout) >= 12
 
 
+def test_cluster_subpackage_is_held_to_the_rules():
+    """The admission webhook's twin and its label parsing
+    (``cluster/``) and its daemon keep their own copies too: listed
+    among the checked files, and importable with jax blocked."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for name in ("__init__.py", "labels.py", "webhook.py"):
+        assert f"kubeshare_tpu_torch/cluster/{name}" in names
+    assert "kubeshare_tpu_torch/cmd/webhook.py" in names
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'kubeshare_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import kubeshare_tpu_torch.cluster as c\n"
+        "import kubeshare_tpu_torch.cmd.webhook\n"
+        "print(sorted(c.__all__))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "mutate_pod" in out.stdout and "parse_pod" in out.stdout
+
+
 CFG = tllama.LlamaConfig(vocab=64, dim=32, layers=1, num_heads=2,
                          num_kv_heads=1, mlp_dim=64, max_seq_len=16,
                          dtype="float32")

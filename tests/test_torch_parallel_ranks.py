@@ -394,11 +394,12 @@ def two_layer_loss(model, x, y):
     return torch.mean((pred - y) ** 2)
 
 
-def elastic_cases(joined, w1, w2, x, y, x8, y8, lr) -> dict:
+def elastic_cases(joined, w1, w2, x, y, x8, y8, lr, x32=None, y32=None,
+                  directory=None) -> dict:
     """A trainer over the world's 4 ranks: 3 steps, resized to ranks
     [0, 1], 3 steps, back to all 4, 3 steps; then one over rank 0 alone
     and one over all 4 on the same 2 steps; and a batch that does not
-    divide."""
+    divide. With ``directory``, also ``elastic_resume``'s sequence."""
     from kubeshare_tpu_torch.parallel import ElasticTrainer
 
     batch = (torch.tensor(x), torch.tensor(y))
@@ -430,4 +431,49 @@ def elastic_cases(joined, w1, w2, x, y, x8, y8, lr) -> dict:
         out["bad_batch"] = None
     except ValueError as err:
         out["bad_batch"] = str(err)
+    if directory is not None:
+        out["resume"] = elastic_resume(joined, w1, w2, x32, y32, lr,
+                                       directory)
+    return out
+
+
+def elastic_resume(joined, w1, w2, x, y, lr, directory) -> dict:
+    """tests/test_checkpoint.py's kill -> resize -> checkpoint ->
+    restore -> resume: 4 members, 3 steps; resized to ranks [0, 1], 3
+    steps; rank 0 saves through models/checkpoint.py; every rank
+    restores into a fresh model and a new trainer over ranks [0, 1, 2]
+    takes the AdamW state and the step count; 3 steps on the first 30
+    rows (which divide by 3, not by 4 or 2)."""
+    from kubeshare_tpu_torch.models.checkpoint import (
+        latest_checkpoint, restore_checkpoint, save_checkpoint,
+    )
+    from kubeshare_tpu_torch.parallel import ElasticTrainer
+
+    def loss(value):
+        return None if value is None else float(value)
+
+    batch = (torch.tensor(x), torch.tensor(y))
+    trainer = ElasticTrainer(two_layer_loss, TwoLayer(w1, w2),
+                             learning_rate=lr)
+    losses = [loss(trainer.step(batch)) for _ in range(3)]
+    trainer.resize([0, 1])
+    out = {"dp": [trainer.dp], "generation": [trainer.generation]}
+    losses += [loss(trainer.step(batch)) for _ in range(3)]
+    if joined.rank == 0:
+        save_checkpoint(directory, trainer.steps, trainer.model,
+                        trainer.optimizer)
+    comm.barrier(comm.world())
+    out["saved"] = latest_checkpoint(directory)
+    model = TwoLayer(np.zeros_like(w1), np.zeros_like(w2))
+    step, _, opt_state = restore_checkpoint(directory, model)
+    reborn = ElasticTrainer(two_layer_loss, model, learning_rate=lr,
+                            ranks=[0, 1, 2], opt_state=opt_state,
+                            steps=step)
+    out["dp"].append(reborn.dp)
+    out["generation"].append(reborn.generation)
+    out["restored_steps"] = reborn.steps
+    small = (batch[0][:30], batch[1][:30])
+    losses += [loss(reborn.step(small)) for _ in range(3)]
+    out["losses"] = losses
+    out["steps"] = [trainer.steps, reborn.steps]
     return out
