@@ -14,11 +14,17 @@ nonzero and prints no result:
    reference's dry-run head dims: 16 (bf16 and float32, native), 8
    (float32, padded to 16) and 96 (bf16, padded to 128), both at
    (1, 4, 2, 8192, 8192, D) and at the shapes phase 19 (e)'s dry run
-   gives the kernels; out held absolutely, and row by row relative to
-   its norm where Tk >= 2048; at the 8B shape, the two head-dim-32 ones
-   and the four small-head-dim ones at (1, 4, 2, 8192, 8192, D) the
+   gives the kernels; at head dim 256 (bf16 and float32, 8 query heads
+   on one kv head: (1, 8, 1, T, T, 256) at T 2048 and 8192 causal, at
+   2048 full; a window, ragged T, and 192 padded to 256); out held
+   absolutely, and row by row relative to its norm where Tk >= 2048; at
+   the 8B shape, the two head-dim-32 ones, the four small-head-dim ones
+   at (1, 4, 2, 8192, 8192, D) and the four causal head-dim-256 ones the
    kernel and SDPA timed in turns over several rounds (the padding
-   copies inside the kernel's time).
+   copies inside the kernel's time; at head dim 256 SDPA on k and v
+   repeated to q's heads, bf16 through its flash backend, float32
+   through the backend it picks, named); head dim 257 must raise before
+   any launch, in ``flash_forward`` and in ``mha``.
 3. forward: ``llama_apply`` at Llama-3-8B width (all 32 layers, random
    weights from the seed) on 2048 tokens; the flash kernel must launch
    once per layer; logits against the plain-attention forward.
@@ -30,8 +36,8 @@ nonzero and prints no result:
 5. sharing: two tenants' decode servers (graphed) under ``ChipExecutor``.
 6. backward kernels: dq and dk/dv against their plain version on the
    card at phase 2's shapes (some with an lse cotangent, the padded
-   head dim 8 among them), bit-identical on a second launch; at phase
-   2's timed shapes dq and dk/dv (on inputs padded once to the native
+   head dims 8 and 192 among them), bit-identical on a second launch;
+   at phase 2's timed shapes dq and dk/dv (on inputs padded once to the native
    head dim), the whole ``flash_backward`` (its padding, delta', both
    kernels and the slices back) and SDPA's backward timed in turns;
    then at six shapes around it all three kernels
@@ -148,6 +154,15 @@ nonzero and prints no result:
     the interposer must have gated its launches and set
     ``CUDA_VISIBLE_DEVICES``. A second child given a uuid no card has
     must see no device and fail.
+21. head dim 256: this repo's Llama at Gemma-2B's attention widths
+    (GEMMA_2B_WIDTHS: dim 2048, 8 heads on 1 kv head, head dim 256, mlp
+    16384, vocab 256000; random bf16 weights from the seed): (a)
+    ``llama_apply`` over all 18 layers on [1, 2048] tokens, the forward
+    kernel launched once a layer, logits against the plain-attention
+    forward; (b) ``llama_loss`` (vocab-chunked) under ``make_train_step``
+    (Adam) on [1, 2049] tokens at 4 of the 18 layers: gradients against
+    plain attention, each kernel launched once a layer and step, five
+    steps on one batch whose loss must fall.
 
 Then each phase's seconds, the ``{"kernels": [...]}`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA device, and
@@ -308,6 +323,23 @@ def flash_bound_ms(shape, dtype_name: str, causal: bool, window: int,
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
+
+# Phase 21: Gemma-2B's attention geometry in this repo's Llama (head dim
+# dim // num_heads = 256, 8 query heads on one kv head), from the
+# published config.json of google/gemma-2b on the Hugging Face hub
+# (hidden 2048, 8 heads, 1 kv head, head dim 256, intermediate 16384, 18
+# layers, vocab 256000, rope theta 10000). It runs the Llama block
+# (SwiGLU, an untied head): Gemma's GeGLU, (1 + w) norm, scaled
+# embedding and tied head are not modelled. The training step is cut to
+# GEMMA_TRAIN_LAYERS of the 18 layers: the 1.05 B embedding and head
+# parameters in float32 with Adam's state take ~17 GB, and 18 layers
+# would add ~32 GB and most of the time limit. The loss is vocab-chunked
+# (256000 = 15 * 16384 + 10240: a ragged last tile).
+GEMMA_2B_WIDTHS = dict(vocab=256000, dim=2048, layers=18, num_heads=8,
+                       num_kv_heads=1, mlp_dim=16384, max_seq_len=8192,
+                       rope_theta=10000.0)
+GEMMA_TRAIN_LAYERS = 4
+GEMMA_VOCAB_CHUNK = 16384
 
 # Phase 18: the sequence-parallel Llama at the ~200M config of
 # bench/kernels.py (bench_kernels.py:95-98), sp = 4 ranks on one card,
@@ -1228,6 +1260,141 @@ def admission_phase(uuid: str, smi: str) -> dict:
     return result
 
 
+def head_dim_256_phase(device, gen, smi: str, breakdown,
+                       widths=GEMMA_2B_WIDTHS,
+                       train_layers: int = GEMMA_TRAIN_LAYERS,
+                       seq: int = 2048, vocab_chunk: int = GEMMA_VOCAB_CHUNK):
+    """Phase 21 (module docstring): ``llama_apply`` at ``widths`` on
+    [1, seq] tokens, then ``train_layers`` of it trained on [1, seq + 1]
+    under ``make_train_step`` (Adam, the vocab-chunked loss); each against
+    plain attention. ``breakdown(fn, wall_ms)`` is ``main``'s
+    ``device_breakdown``. Returns the kernels' launches in the forward and
+    in one training step."""
+    import numpy as np
+    import torch
+
+    from kubeshare_tpu_torch.models.llama import (
+        LlamaConfig, init_llama, llama_apply, llama_loss,
+    )
+    from kubeshare_tpu_torch.models.train import make_train_step
+    from kubeshare_tpu_torch.ops.attention import LAUNCHES
+
+    def rel_err(got, want) -> float:
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1e-30)).item()
+
+    def reset() -> None:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+    cfg = LlamaConfig(**widths)
+    head_dim = cfg.dim // cfg.num_heads
+    # (a) the scoring forward, every layer
+    t0 = time.perf_counter()
+    model = init_llama(cfg, generator=gen, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
+                           device=device)
+    with torch.no_grad():
+        reset()
+        logits = llama_apply(model, tokens)
+        torch.cuda.synchronize()
+        fwd_launches = dict(LAUNCHES)
+        check(fwd_launches == {"flash_fwd": cfg.layers, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0},
+              f"a {cfg.layers}-layer forward at head dim {head_dim} "
+              f"launched {fwd_launches}")
+        check(tuple(logits.shape) == (1, seq, cfg.vocab)
+              and logits.dtype == torch.float32, "logits shape/dtype")
+        check(torch.isfinite(logits).all().item(), "non-finite logits")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            llama_apply(model, tokens)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        forward_s = statistics.median(times)
+        forward_device = breakdown(lambda: llama_apply(model, tokens),
+                                   1e3 * forward_s)
+        plain = llama_apply(model, tokens, use_flash=False)
+        scale = logits.abs().max().item()
+        rel = (logits - plain).abs().max().item() / scale
+        top1 = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        del plain
+    emit({"phase": "gemma_forward", "config": widths, "head_dim": head_dim,
+          "tokens": seq, "init_s": init_s, "flash_launches": fwd_launches,
+          "logits_max_abs": scale, "rel_err_vs_plain": rel,
+          "rel_tol": LOGIT_REL_TOL, "top1_agreement_vs_plain": top1,
+          "forward_ms": 1e3 * forward_s, "tokens_per_s": seq / forward_s,
+          "weights_gb": torch.cuda.memory_allocated() / 1e9,
+          "device": forward_device, "card": smi})
+    check(rel <= LOGIT_REL_TOL,
+          f"head-dim-{head_dim} logits off by {rel}")
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the training step, depth cut to train_layers
+    tcfg = dataclasses.replace(cfg, layers=train_layers)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = init_llama(tcfg, generator=gen, device=device, trainable=True)
+    params = [p for p in trainer.parameters() if p.requires_grad]
+    names = [n for n, p in trainer.named_parameters() if p.requires_grad]
+    batch = torch.randint(0, tcfg.vocab, (1, seq + 1), generator=gen,
+                          device=device)
+
+    def loss_of(m, t, **kwargs):
+        return llama_loss(m, t, vocab_chunk=vocab_chunk, **kwargs)
+
+    def grads_of(**kwargs):
+        loss = loss_of(trainer, batch, **kwargs)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss_flash, grads_flash = grads_of()
+    loss_plain, grads_plain = grads_of(use_flash=False)
+    grad_rel = {n: rel_err(a, b)
+                for n, a, b in zip(names, grads_flash, grads_plain)}
+    worst = max(grad_rel, key=grad_rel.get)
+    finite = all(torch.isfinite(g).all().item() for g in grads_flash)
+    del grads_flash, grads_plain
+    torch.cuda.empty_cache()
+    _, step = make_train_step(loss_of, trainer, learning_rate=1e-4)
+    reset()
+    losses = [step(batch).item()]
+    train_launches = dict(LAUNCHES)
+    step_times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(batch).item())   # .item() syncs
+        step_times.append(time.perf_counter() - t0)
+    step_s = statistics.median(step_times)
+    train_device = breakdown(lambda: step(batch), 1e3 * step_s)
+    emit({"phase": "gemma_training", "config": widths,
+          "layers": tcfg.layers, "head_dim": head_dim,
+          "params": sum(p.numel() for p in params),
+          "tokens": [1, seq + 1], "vocab_chunk": vocab_chunk,
+          "loss_flash": loss_flash.item(), "loss_plain": loss_plain.item(),
+          "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst": worst,
+          "grad_rel_tol": GRAD_REL_TOL, "launches_per_step": train_launches,
+          "adam_lr": 1e-4, "losses": losses, "step_ms": 1e3 * step_s,
+          "tokens_per_s": seq / step_s,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "device": train_device, "card": smi})
+    check(finite and grad_rel[worst] <= GRAD_REL_TOL,
+          f"head-dim-{head_dim} training gradients off: {worst} "
+          f"{grad_rel[worst]}")
+    check(all(train_launches[n] == tcfg.layers for n in LAUNCHES),
+          f"kernel launches per head-dim-{head_dim} step: {train_launches}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"head-dim-{head_dim} training loss did not fall: {losses}")
+    del trainer, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fwd_launches, train_launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1352,10 +1519,39 @@ def main() -> int:
         return {"kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
                 "top": [[name[:90], ms] for name, ms in top]}
 
+    def sdpa_context(q):
+        """Where SDPA runs: its flash backend for bf16 above head dim 128
+        (it takes D = 256), else whatever backend SDPA picks."""
+        if q.dtype == torch.bfloat16 and q.shape[-1] > 128:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            return sdpa_kernel(SDPBackend.FLASH_ATTENTION)
+        return contextlib.nullcontext()
+
+    def sdpa_kv(q, k, v):
+        """k and v for SDPA: as they are up to head dim 128 (SDPA groups
+        the heads itself), repeated to q's heads above it, outside any
+        timed call."""
+        if q.shape[-1] <= 128:
+            return k, v
+        return attn._repeat_kv(k, v, q.shape[1])
+
+    def sdpa_forward(q, k, v, causal):
+        """A call of SDPA's forward, the yardstick of the forward kernel
+        (sdpa_context, sdpa_kv)."""
+        kr, vr = sdpa_kv(q, k, v)
+
+        def call():
+            with sdpa_context(q):
+                return F.scaled_dot_product_attention(
+                    q, kr, vr, is_causal=causal, enable_gqa=kr.shape[1]
+                    != q.shape[1])
+        return call
+
     def sdpa_backward(q, k, v, do, causal, window=0):
         """A call of SDPA's backward alone (dq, dk and dv of one forward
         kept for it), the yardstick of the backward kernels. A window is
         an explicit mask: SDPA has no window of its own."""
+        k, v = sdpa_kv(q, k, v)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         mask = None
         if window:
@@ -1363,11 +1559,26 @@ def main() -> int:
             pos = torch.arange(t_q, device=q.device)[:, None] + t_k - t_q
             key = torch.arange(t_k, device=q.device)[None, :]
             mask = (key <= pos) & (key > pos - window)
-        out = F.scaled_dot_product_attention(
-            qg, kg, vg, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
+        with sdpa_context(q):
+            out = F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask,
+                is_causal=causal and mask is None,
+                enable_gqa=kg.shape[1] != qg.shape[1])
         return lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                            retain_graph=True)
+
+    def sdpa_ops(fn) -> list:
+        """The attention ops (aten's names: the backend) that one call of
+        ``fn`` runs, read from the profiler; none for the math backend's
+        backward, which is autograd through plain ops."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.key for e in prof.key_averages()
+                       if e.key.startswith("aten::_")
+                       and "attention" in e.key})
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=device).to(dtype)
@@ -1412,9 +1623,28 @@ def main() -> int:
         # the cross-process step: a dp member's 2 rows, a tp rank's heads
         ((2, 2, 1, 8, 8, 8), "float32", True, 0): "crossproc",
     }
+    # head dim 256 (Gemma-2B's attention: 8 query heads on one kv head):
+    # phase 21's forward and training shape (T = 2048) and a long one,
+    # bf16 and float32, causal; then a full mask, a window, ragged T and
+    # 192 run padded to 256
+    d256 = {((1, 8, 1, 2048, 2048, 256), "bfloat16", True, 0): "_d256",
+            ((1, 8, 1, 2048, 2048, 256), "float32", True, 0): "_d256_f32",
+            ((1, 8, 1, 8192, 8192, 256), "bfloat16", True, 0): "_d256_8k",
+            ((1, 8, 1, 8192, 8192, 256), "float32", True, 0):
+                "_d256_8k_f32"}
+    d256_cases = [
+        *d256,
+        ((1, 8, 1, 2048, 2048, 256), "bfloat16", False, 0),
+        ((1, 8, 1, 2048, 2048, 256), "float32", False, 0),
+        ((1, 8, 1, 2048, 2048, 256), "bfloat16", True, 512),
+        ((1, 8, 2, 1000, 1000, 256), "float32", True, 100),
+        ((1, 8, 1, 333, 777, 256), "bfloat16", False, 0),
+        ((1, 8, 1, 2047, 2047, 256), "bfloat16", True, 0),
+        ((1, 8, 1, 2048, 2048, 192), "bfloat16", True, 0),
+    ]
     # the timed cases and the suffix of their rows' kernel names
     timed = {main_case: "", cli_case: "_d32", entry_case: "_d32_entry",
-             **small_d}
+             **small_d, **d256}
     cases = [
         main_case,
         ((1, 32, 8, 2048, 2048, 128), "float32", True, 0),
@@ -1437,7 +1667,18 @@ def main() -> int:
         ((1, 4, 2, 77, 333, 8), "float32", True, 0),
         ((1, 8, 2, 200, 200, 96), "bfloat16", False, 0),
         *dryrun_cases,
+        *d256_cases,
     ]
+
+    def timing_of(shape, dtype_name):
+        """Rounds and calls a round of the turns (interleaved_ms) and calls
+        of a plain-version timing (cuda_ms): the float32 FMA kernels at
+        D = 256 and T = 8192 take tens of ms a call, SDPA's and the plain
+        versions more, so they take fewer."""
+        if dtype_name == "float32" and shape[-1] > 128 and shape[3] >= 8192:
+            return {"rounds": 3, "reps": 2}, {"reps": 1, "warmup": 0,
+                                              "batches": 1}
+        return {}, {"reps": 5, "warmup": 1}
     fwd_rows = {}
     for shape, dtype_name, causal, window in cases:
         batch, heads, kv_heads, t_q, t_k, head_dim = shape
@@ -1479,11 +1720,12 @@ def main() -> int:
                                                 window)
             # one timing per call has moved by up to 16 %: the kernel and
             # SDPA take turns instead
+            turns, plain_timing = timing_of(shape, dtype_name)
+            sdpa = sdpa_forward(q, k, v, causal)
             ms = interleaved_ms({
                 "kernel": lambda: flash_forward(q, k, v, causal, None,
                                                 window),
-                "sdpa": lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True)})
+                "sdpa": sdpa}, **turns)
             kernel_row = {
                 "name": "flash_fwd" + suffix, "shape": list(shape),
                 "route": "cuda",
@@ -1493,7 +1735,7 @@ def main() -> int:
                 "max_abs_err": err_out,
                 "ms": ms["kernel"],
                 "plain_ms": cuda_ms(lambda: flash_attention_reference(
-                    q, k, v, causal, None, window), 5, warmup=1),
+                    q, k, v, causal, None, window), **plain_timing),
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": ms["sdpa"],
             }
@@ -1501,12 +1743,33 @@ def main() -> int:
                   "dtype": dtype_name, **kernel_row,
                   "ms_over_library": ms["kernel"] / ms["sdpa"],
                   "share_of_bound": bound_ms / ms["kernel"],
-                  "timing": "median of 7 rounds of 20 back-to-back "
-                            "launches queued behind a sleep, in turns "
-                            "with SDPA"})
+                  "library_ops": sdpa_ops(sdpa),
+                  "timing": "median of {rounds} rounds of {reps} "
+                            "back-to-back launches queued behind a sleep, "
+                            "in turns with SDPA".format(
+                                **{"rounds": 7, "reps": 20, **turns})})
             fwd_rows[suffix] = kernel_row
         del q, k, v, out, lse, again, again_lse, ref_out, ref_lse
     torch.cuda.empty_cache()
+    # above the largest native head dim the wrappers raise before any
+    # launch: nothing falls back to plain attention
+    before = dict(LAUNCHES)
+    q257 = randn(1, 8, 64, 257, dtype=torch.bfloat16)
+    k257 = randn(1, 1, 64, 257, dtype=torch.bfloat16)
+    refused = []
+    for name, call in (("flash_forward", lambda: flash_forward(q257, k257,
+                                                               k257)),
+                       ("mha", lambda: attn.mha(q257, k257, k257))):
+        try:
+            call()
+        except ValueError as err:
+            refused.append([name, str(err)[:120]])
+    emit({"phase": "head_dim_257", "refused": refused,
+          "launches_before": before, "launches_after": dict(LAUNCHES)})
+    check(len(refused) == 2 and dict(LAUNCHES) == before,
+          f"head dim 257: refused {refused}, launches {before} -> "
+          f"{dict(LAUNCHES)}")
+    del q257, k257
 
     # ---- 3. forward at Llama-3-8B width ---------------------------------
     mark("3_forward")
@@ -1718,7 +1981,10 @@ def main() -> int:
         cases.index(c) for c in (
             ((1, 4, 2, 8192, 8192, 8), "float32", True, 0),
             ((1, 2, 2, 8, 8, 16), "float32", False, 0),
-            ((2, 4, 2, 8, 8, 8), "float32", False, 0))}
+            ((2, 4, 2, 8, 8, 8), "float32", False, 0),
+            ((1, 8, 1, 2048, 2048, 256), "bfloat16", True, 512),
+            ((1, 8, 2, 1000, 1000, 256), "float32", True, 100),
+            ((1, 8, 1, 2048, 2048, 192), "bfloat16", True, 0))}
     bwd_rows = {}
     for i, (shape, dtype_name, causal, window) in enumerate(cases):
         batch, heads, kv_heads, t_q, t_k, head_dim = shape
@@ -1765,9 +2031,11 @@ def main() -> int:
             kernel_in = (*attn.pad_head_dim(native, q, k, v, do), lse,
                          attn._flash_delta(out, do), causal,
                          head_dim ** -0.5, window)
+            turns, plain_timing = timing_of(shape, dtype_name)
             plain_ms = cuda_ms(lambda: flash_backward_reference(
-                q, k, v, out, lse, do, None, causal, None, window), 5,
-                warmup=1)
+                q, k, v, out, lse, do, None, causal, None, window),
+                **plain_timing)
+            sdpa_bwd = sdpa_backward(q, k, v, do, causal)
             # one timing per call moves: dq, dk/dv, the whole backward
             # and SDPA's backward (dq, dk and dv together) take turns
             ms = interleaved_ms({
@@ -1776,7 +2044,7 @@ def main() -> int:
                     *kernel_in),
                 "flash_backward": lambda: flash_backward(
                     q, k, v, out, lse, do, None, causal, None, window),
-                "sdpa_bwd": sdpa_backward(q, k, v, do, causal)})
+                "sdpa_bwd": sdpa_bwd}, **turns)
             emit({"phase": "kernel_timing_bwd", "shape": list(shape),
                   "dtype": dtype_name, "native_head_dim": native, "ms": ms,
                   "dq_plus_dkv_over_library": (ms["flash_bwd_dq"]
@@ -1784,8 +2052,11 @@ def main() -> int:
                   / ms["sdpa_bwd"],
                   "flash_backward_over_library": ms["flash_backward"]
                   / ms["sdpa_bwd"],
-                  "timing": "median of 7 rounds of 20 back-to-back "
-                            "launches queued behind a sleep, in turns"})
+                  "library_ops": sdpa_ops(sdpa_bwd),
+                  "timing": "median of {rounds} rounds of {reps} "
+                            "back-to-back launches queued behind a sleep, "
+                            "in turns".format(
+                                **{"rounds": 7, "reps": 20, **turns})})
             for name, kind, err in (
                     ("flash_bwd_dq", "bwd_dq", abs_err["dq"]),
                     ("flash_bwd_dkv", "bwd_dkv",
@@ -1810,7 +2081,7 @@ def main() -> int:
                     # SDPA's backward (dq, dk and dv together)
                     "library_ms": ms["sdpa_bwd"],
                 }
-            del kernel_in
+            del kernel_in, sdpa_bwd
         del q, k, v, do, g_lse, out, lse, got, again, want
     torch.cuda.empty_cache()
 
@@ -2829,13 +3100,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     admission_phase(card_uuid, smi)
 
+    # ---- 21. Gemma-2B's attention widths: head dim 256 ------------------
+    mark("21_head_dim_256")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma_fwd_launches, gemma_train_launches = head_dim_256_phase(
+        device, gen, smi, device_breakdown)
+
     mark("end")
     marks = list(phase_started.items())
     emit({"phase": "timing",
           "seconds": {name: t1 - t0 for (name, t0), (_, t1)
                       in zip(marks, marks[1:])},
           "flash_launches": {"entry": entry_launches, **llama_runs,
-                             "llama_step": llama_step_launches}})
+                             "llama_step": llama_step_launches,
+                             "gemma_forward": gemma_fwd_launches,
+                             "gemma_step": gemma_train_launches}})
 
     # the 8B rows: launches of the 8B forward (phase 3) and of a training
     # step (phase 7); the head-dim-32 rows: of one workload CLI llama step
@@ -2871,22 +3151,41 @@ def main() -> int:
                     bwd_rows["flash_bwd_dkv_d8_f32"]]
     check(all(r["launches"] > 0 for r in small_d_rows),
           f"a dry-run instance was not launched: {small_d_rows}")
-    # timed in phases 2 and 6 but called on no main path at this head dim
-    # and dtype: 96 (no model of the repo has it) and the float32
+    # head dim 256: launches of phase 21's forward and of a training step
+    fwd_rows["_d256"]["launches"] = gemma_fwd_launches["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        bwd_rows[name + "_d256"]["launches"] = gemma_train_launches[name]
+    d256_rows = [fwd_rows["_d256"], bwd_rows["flash_bwd_dq_d256"],
+                 bwd_rows["flash_bwd_dkv_d256"]]
+    # timed in phases 2 and 6 but called on no main path at this head dim,
+    # dtype or shape: 96 (no model of the repo has it), the float32
     # head-dim-16 backward called natively (the main path runs that
-    # instance padded from 8: the _d8_f32 rows)
+    # instance padded from 8: the _d8_f32 rows), head dim 256 in float32
+    # (phase 21 is bf16) and at T = 8192
     off_path = [fwd_rows["_d96"], bwd_rows["flash_bwd_dq_d96"],
                 bwd_rows["flash_bwd_dkv_d96"],
                 bwd_rows["flash_bwd_dq_d16_f32"],
-                bwd_rows["flash_bwd_dkv_d16_f32"]]
+                bwd_rows["flash_bwd_dkv_d16_f32"],
+                *(rows[name + suffix]
+                  for suffix in ("_d256_f32", "_d256_8k", "_d256_8k_f32")
+                  for rows, name in ((fwd_rows, ""),
+                                     (bwd_rows, "flash_bwd_dq"),
+                                     (bwd_rows, "flash_bwd_dkv")))]
     for r in off_path:
         r["launches"] = 0
     emit({"phase": "kernel_timing_off_the_main_path", "rows": off_path})
-    emit({"kernels": [fwd_rows[""], bwd_rows["flash_bwd_dq"],
-                      bwd_rows["flash_bwd_dkv"], fwd_rows["_d32"],
-                      bwd_rows["flash_bwd_dq_d32"],
-                      bwd_rows["flash_bwd_dkv_d32"], *small_d_rows,
-                      *sp_kernel_rows, *mc_kernel_rows]})
+    kernel_rows = [fwd_rows[""], bwd_rows["flash_bwd_dq"],
+                   bwd_rows["flash_bwd_dkv"], fwd_rows["_d32"],
+                   bwd_rows["flash_bwd_dq_d32"],
+                   bwd_rows["flash_bwd_dkv_d32"], *small_d_rows,
+                   *sp_kernel_rows, *mc_kernel_rows, *d256_rows]
+    # the head dim each row's call ran at, and the instance that ran it
+    for r in kernel_rows:
+        r["head_dim"] = r["shape"][-1]
+        r["native_head_dim"] = attn.native_head_dim(r["shape"][-1])
+    check(all(r["launches"] > 0 for r in d256_rows),
+          f"a head-dim-256 kernel was not launched: {d256_rows}")
+    emit({"kernels": kernel_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -16,15 +16,16 @@ a multiple of Hkv (grouped-query attention). The kernels read each kv
 head once for its H/Hkv query heads; K/V are never repeated.
 
 Head dims: the kernels are built for D in ``FLASH_HEAD_DIMS``; any other
-D up to 128 runs them at the next of those, with q, k, v (and, in the
+D up to 256 runs them at the next of those, with q, k, v (and, in the
 backward, out and dO) zero-padded on the last axis and the results
 sliced back (``padded_forward``, ``padded_backward``). The scale stays
-1/sqrt(D) of the true D. A CUDA tensor with D > 128 raises.
+1/sqrt(D) of the true D. A CUDA tensor with D > 256 raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -34,27 +35,53 @@ _NEG_INF = -1e30
 
 # Head dims the CUDA kernels are compiled for (a template argument of
 # csrc/flash_*.cu; 32 is the reference's own Llama entry and workload
-# CLI, 16 its dry run's bf16 Llama). Any other head dim up to the last
-# runs the kernels of the next one up on zero-padded inputs; above it a
-# CUDA tensor raises: nothing falls back to plain attention.
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
+# CLI, 16 its dry run's bf16 Llama, 256 Gemma-2B's attention). Any other
+# head dim up to the last runs the kernels of the next one up on
+# zero-padded inputs; above it a CUDA tensor raises: nothing falls back
+# to plain attention.
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 # The key-tile width of the float32 kernels (BK in csrc/flash_common.cuh).
 # The plain versions walk the same tiles, so the float32 forward's
 # online-softmax rescaling happens at the same places; the bf16 forward
 # rescales every FLASH_FWD_BLOCK_K keys, which moves where P is rounded to
 # bf16 but not the function.
 FLASH_BLOCK_K = 64
-# The bf16 forward kernel's tiles (FWD_BM, FWD_BN in csrc/flash_fwd.cu):
-# query rows per block (two warpgroups of 64) and keys per K/V tile.
+# The bf16 forward kernel's tiles up to D = 128 (FWD_BM, fwd_bn in
+# csrc/flash_fwd.cu): query rows per block (two warpgroups of 64) and
+# keys per K/V tile.
 FLASH_FWD_BLOCK_Q = 128
 FLASH_FWD_BLOCK_K = 128
-# The bf16 backward kernels' tiles (csrc/flash_bwd.cu). dq takes the
-# forward's items of FLASH_FWD_BLOCK_Q rows with K/V tiles of
-# FLASH_DQ_BLOCK_K keys (DQ_BN); dk/dv items of FLASH_DKV_BLOCK_K keys
-# (DKV_BN) with q tiles of FLASH_DKV_BLOCK_Q rows (DKV_BM).
+# The bf16 backward kernels' tiles up to D = 128 (csrc/flash_bwd.cu). dq
+# takes the forward's items of FLASH_FWD_BLOCK_Q rows with K/V tiles of
+# FLASH_DQ_BLOCK_K keys (dq_bn); dk/dv items of FLASH_DKV_BLOCK_K keys
+# (dkv_bn) with q tiles of FLASH_DKV_BLOCK_Q rows (DKV_BM).
 FLASH_DQ_BLOCK_K = 64
 FLASH_DKV_BLOCK_K = 128
 FLASH_DKV_BLOCK_Q = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashTiles:
+    """The bf16 kernels' key tiles at one native head dim, as the kernels
+    take them (the work lists and the dk/dv scratch are built with
+    these): ``fwd_k`` keys a forward K/V tile, ``dq_k`` keys a dq K/V
+    tile, ``dkv_k`` keys a dk/dv item. Query rows stay
+    FLASH_FWD_BLOCK_Q and FLASH_DKV_BLOCK_Q at every head dim."""
+    fwd_k: int
+    dq_k: int
+    dkv_k: int
+
+
+def flash_tiles(head_dim: int) -> FlashTiles:
+    """The tiles of the kernels that run head dim ``head_dim`` (its
+    native one's): the FLASH_* constants up to 128; at 256, where the
+    128-key tiles do not fit the card's shared memory or registers
+    (csrc/flash_*.cu), 64-key forward tiles, 32-key dq tiles and 64-key
+    dk/dv items. The float32 kernels' key tile stays FLASH_BLOCK_K."""
+    if native_head_dim(head_dim) > 128:
+        return FlashTiles(64, 32, 64)
+    return FlashTiles(FLASH_FWD_BLOCK_K, FLASH_DQ_BLOCK_K, FLASH_DKV_BLOCK_K)
+
 
 # Launches of each kernel, counted by its wrapper where it launches.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -164,8 +191,9 @@ def flash_forward_schedule(batch_heads: int, t_q: int, t_k: int,
                            causal: bool = True, window: int = 0,
                            sms: int = 132,
                            block_k: int = FLASH_FWD_BLOCK_K):
-    """The work of the bf16 forward kernel (and, with ``block_k`` =
-    FLASH_DQ_BLOCK_K, of the bf16 dq kernel), block by block: one list of
+    """The work of the bf16 forward kernel (and, with ``block_k`` = the
+    dq tile, ``flash_tiles(D).dq_k``, of the bf16 dq kernel; at D = 256
+    the forward's is ``flash_tiles(D).fwd_k``), block by block: one list of
     ``(bh, q0, lo, hi)`` items per block of its persistent grid
     (``min(items, sms)`` blocks, one per SM), in the order the block takes
     them. The items, (head, q tile of FLASH_FWD_BLOCK_Q rows) pairs, are
@@ -201,18 +229,19 @@ def _row_range(k_first: int, k_last: int, t_q: int, t_k: int, causal: bool,
 
 def flash_backward_schedule(batch_kv_heads: int, reps: int, t_q: int,
                             t_k: int, causal: bool = True, window: int = 0,
-                            sms: int = 132):
+                            sms: int = 132,
+                            block_k: int = FLASH_DKV_BLOCK_K):
     """The bf16 dk/dv kernel's work, block by block: one list of
     ``(bkv, k0, r, lo, hi)`` items per block of its persistent grid, in
     the order the block takes them. An item is key tile k0 (of
-    FLASH_DKV_BLOCK_K keys) of kv head ``bkv`` with query head ``r`` of
-    its group of ``reps``, and the query rows [lo, hi) that can see the
-    tile (lo aligned to FLASH_DKV_BLOCK_Q; ``lo == hi`` when none can:
-    the item then writes zeros). Items are sorted longest first (most q
-    tiles), ties by (tile, kv head, r), so item (tile, r) always precedes
-    (tile, r + 1), which waits for it to add its part of the group's sum;
-    they are dealt in a snake (``_snake``)."""
-    bq, bk = FLASH_DKV_BLOCK_Q, FLASH_DKV_BLOCK_K
+    ``block_k`` keys, ``flash_tiles(D).dkv_k``) of kv head ``bkv`` with
+    query head ``r`` of its group of ``reps``, and the query rows [lo, hi)
+    that can see the tile (lo aligned to FLASH_DKV_BLOCK_Q; ``lo == hi``
+    when none can: the item then writes zeros). Items are sorted longest first
+    (most q tiles), ties by (tile, kv head, r), so item (tile, r) always
+    precedes (tile, r + 1), which waits for it to add its part of the
+    group's sum; they are dealt in a snake (``_snake``)."""
+    bq, bk = FLASH_DKV_BLOCK_Q, block_k
     keyed = []
     for kt in range(-(-t_k // bk)):
         k0 = kt * bk
@@ -257,7 +286,7 @@ def _sms(device: torch.device) -> int:
 def _forward_work_on(device: torch.device, batch_heads: int, t_q: int,
                      t_k: int, causal: bool, window: int,
                      block_k: int = FLASH_FWD_BLOCK_K):
-    """The forward's (or, with ``block_k`` = FLASH_DQ_BLOCK_K, dq's) work
+    """The forward's (or, with ``block_k`` = the dq tile, dq's) work
     list on the card for one shape, made once."""
     return _work_on(device, flash_forward_schedule(
         batch_heads, t_q, t_k, causal, window, _sms(device), block_k))
@@ -265,11 +294,13 @@ def _forward_work_on(device: torch.device, batch_heads: int, t_q: int,
 
 @functools.lru_cache(maxsize=64)
 def _backward_work_on(device: torch.device, batch_kv_heads: int, reps: int,
-                      t_q: int, t_k: int, causal: bool, window: int):
-    """The dk/dv kernel's work list on the card for one shape, made
-    once."""
+                      t_q: int, t_k: int, causal: bool, window: int,
+                      block_k: int = FLASH_DKV_BLOCK_K):
+    """The dk/dv kernel's work list on the card for one shape and item
+    width, made once."""
     return _work_on(device, flash_backward_schedule(
-        batch_kv_heads, reps, t_q, t_k, causal, window, _sms(device)))
+        batch_kv_heads, reps, t_q, t_k, causal, window, _sms(device),
+        block_k))
 
 
 def flash_attention_reference(q, k, v, causal: bool = True,
@@ -491,7 +522,7 @@ def _flash_forward_cuda(q, k, v, causal: bool, scale: float, window: int):
     if q.dtype == torch.bfloat16:
         work, blocks = _forward_work_on(q.device, q.shape[0] * q.shape[1],
                                         q.shape[2], k.shape[2], causal,
-                                        window)
+                                        window, flash_tiles(q.shape[-1]).fwd_k)
     _launch("flash_fwd", fn, q, k, (q, k, v, out, lse, work), causal, scale,
             window, blocks)
     return out, lse
@@ -505,7 +536,7 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, scale: float,
     if q.dtype == torch.bfloat16:
         work, blocks = _forward_work_on(
             q.device, q.shape[0] * q.shape[1], q.shape[2], k.shape[2],
-            causal, window, FLASH_DQ_BLOCK_K)
+            causal, window, flash_tiles(q.shape[-1]).dq_k)
     _launch("flash_bwd_dq", _bind("flash_bwd", "flash_bwd_dq", 8, n_extra=1),
             q, k, (q, k, v, do, lse, delta, dq, work), causal, scale, window,
             blocks)
@@ -524,8 +555,10 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float,
     batch, kv_heads, t_k, head_dim = k.shape
     reps = q.shape[1] // kv_heads
     if q.dtype == torch.bfloat16:
+        tile = flash_tiles(head_dim).dkv_k
         work, blocks = _backward_work_on(q.device, batch * kv_heads, reps,
-                                         q.shape[2], t_k, causal, window)
+                                         q.shape[2], t_k, causal, window,
+                                         tile)
         # the kernel reads lse and delta' rows in TMA boxes that must start
         # 16-byte aligned: rows padded to a multiple of 4 floats
         pad = -q.shape[2] % 4
@@ -533,9 +566,9 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, scale: float,
             lse, delta = (torch.nn.functional.pad(
                 x.reshape(-1, q.shape[2]), (0, pad)) for x in (lse, delta))
         if reps > 1:
-            tiles = batch * kv_heads * -(-t_k // FLASH_DKV_BLOCK_K)
+            tiles = batch * kv_heads * -(-t_k // tile)
             counters = torch.zeros(tiles, dtype=torch.int32, device=q.device)
-            scratch = torch.empty(tiles * 2 * FLASH_DKV_BLOCK_K * head_dim,
+            scratch = torch.empty(tiles * 2 * tile * head_dim,
                                   dtype=torch.float32, device=q.device)
     _launch("flash_bwd_dkv",
             _bind("flash_bwd", "flash_bwd_dkv", 11, n_extra=1), q, k,
@@ -579,7 +612,7 @@ def _device_route(q) -> bool:
 def flash_forward(q, k, v, causal: bool = True,
                   scale: Optional[float] = None, window: int = 0):
     """``(out, lse)`` of flash attention: the CUDA kernel for CUDA
-    tensors (any head dim up to 128, padded to the next native one), the
+    tensors (any head dim up to 256, padded to the next native one), the
     plain version for CPU tensors. Takes any Tq, Tk (the kernel masks
     ragged tiles itself); causal needs Tq <= Tk."""
     _check_flash_args(q, k, v, causal, window)

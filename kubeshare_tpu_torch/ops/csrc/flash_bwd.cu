@@ -98,12 +98,34 @@
 // float32 inputs have no tensor-core path with float32 products (TF32
 // would change the numbers), so the float32 kernels use FMAs on the CUDA
 // cores.
-// Head dims: instances for 16, 32, 64 and 128. At D = 16 the bf16
+// Head dims: instances for 16, 32, 64, 128 and 256. At D = 16 the bf16
 // kernels' tiles are one 16-column box with the 32-byte swizzle, S and dP
 // a single k16 step, and dS K, P^T dO and dS^T Q m64n16k16 products; the
 // float32 kernels give each thread one output column. The wrapper
-// (../attention.py) zero-pads any other head dim up to 128 to the next
+// (../attention.py) zero-pads any other head dim up to 256 to the next
 // of these and slices dq, dk and dv back.
+// D = 256 gives up some of the design above to fit the card's 227 KiB of
+// shared memory and 240 registers a consumer thread:
+// - dq: Q and dO are kept single-buffered (128 KiB: double-buffered they
+//   alone would take 256 KiB), so the next item's loads wait for this
+//   one; K/V tiles are 32 keys (dq_bn), three stages of 32 KiB. A thread
+//   holds dQ (128 float32), S and dP (16 each) and dS's fragments (8);
+//   dS K is one m64n256k16 product a k16 step.
+// - dk/dv: 64 keys an item (dkv_bn) with K and V single-buffered (64
+//   KiB) beside the two-stage q-tile ring (128 KiB). dK and dV of 64 keys
+//   at D = 256 would take 256 registers a thread in one warpgroup, so
+//   the item's D is split between the two consumer warpgroups (dkv_split):
+//   both form S^T and dP^T of the same 64 keys over the whole D (each
+//   warpgroup its own copy: the products the D <= 128 layout splits by
+//   key are here done twice), and each owns D / 2 columns of dK and dV,
+//   accumulated by m64n128k16 products over its half of Q's and dO's
+//   boxes. A thread holds the same 224 accumulator and fragment
+//   registers as at D = 128. The group's ordered sum and its
+//   no-deadlock argument are unchanged: its scratch is a 64-key tile's
+//   two D-wide partials.
+// - float32: q and dO (dq) or K and V (dk/dv) stay whole, and the other
+//   pair passes through shared memory in 64-column chunks (f32_chunk),
+//   loaded once for S and dP and again for the output product.
 
 #include <math.h>
 
@@ -119,9 +141,29 @@ constexpr int BWD_CONSUMERS = 256;  // threads of the consumer warpgroups
 constexpr int DQ_STAGES = 3;        // dq: depth of the K/V ring
 constexpr int DKV_STAGES = 2;       // dkv: depth of the q-tile ring
 constexpr int DQ_BM = 128;          // dq: query rows per item
-constexpr int DQ_BN = 64;           // dq: keys per K/V tile
-constexpr int DKV_BN = 128;         // dkv: keys per item
 constexpr int DKV_BM = 64;          // dkv: query rows per q tile
+
+// Tiles that change with the head dim (see the top; flash_tiles in
+// ../attention.py builds the work lists and the scratch with the same):
+// dq's keys per K/V tile, dkv's keys per item, whether dkv splits D
+// between its two warpgroups, and how many of an item's kept tiles (dq:
+// Q and dO; dkv: K and V) are buffered.
+template <int D>
+__host__ __device__ constexpr int dq_bn() {
+  return D > 128 ? 32 : 64;
+}
+template <int D>
+__host__ __device__ constexpr bool dkv_split() {
+  return D > 128;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_bn() {
+  return dkv_split<D>() ? 64 : 128;
+}
+template <int D>
+__host__ __device__ constexpr int item_bufs() {
+  return D > 128 ? 1 : 2;
+}
 // registers a thread after setmaxnreg: the launch gives each of the 384
 // threads 168 (65536 / 384, rounded down to 8), and the warpgroups' sum
 // stays 168 * 384 = 24 * 128 + 240 * 256
@@ -131,31 +173,34 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 using DqRing = Ring<DQ_STAGES>;    // dq's K/V tiles
 using DkvRing = Ring<DKV_STAGES>;  // dkv's q tiles
-using ItemRing = Ring<2>;          // the tiles an item keeps
+template <int D>
+using ItemRing = Ring<item_bufs<D>()>;  // the tiles an item keeps
 
 // Tiles as Tile<D>::BOXES column boxes of [rows][COLS] bf16 (hopper.cuh);
 // every box is a multiple of 8 rows, so all start on the swizzle's period.
 template <int D>
 struct DqSmem {
   using Tl = Tile<D>;
-  __nv_bfloat16 q[2][Tl::BOXES][DQ_BM * Tl::COLS];
-  __nv_bfloat16 dout[2][Tl::BOXES][DQ_BM * Tl::COLS];
-  __nv_bfloat16 k[DQ_STAGES][Tl::BOXES][DQ_BN * Tl::COLS];
-  __nv_bfloat16 v[DQ_STAGES][Tl::BOXES][DQ_BN * Tl::COLS];
-  uint64_t full_q[2], empty_q[2], full_k[DQ_STAGES], full_v[DQ_STAGES];
+  static constexpr int BN = dq_bn<D>(), IB = item_bufs<D>();
+  __nv_bfloat16 q[IB][Tl::BOXES][DQ_BM * Tl::COLS];
+  __nv_bfloat16 dout[IB][Tl::BOXES][DQ_BM * Tl::COLS];
+  __nv_bfloat16 k[DQ_STAGES][Tl::BOXES][BN * Tl::COLS];
+  __nv_bfloat16 v[DQ_STAGES][Tl::BOXES][BN * Tl::COLS];
+  uint64_t full_q[IB], empty_q[IB], full_k[DQ_STAGES], full_v[DQ_STAGES];
   uint64_t empty_k[DQ_STAGES], empty_v[DQ_STAGES];
 };
 
 template <int D>
 struct DkvSmem {
   using Tl = Tile<D>;
-  __nv_bfloat16 k[2][Tl::BOXES][DKV_BN * Tl::COLS];
-  __nv_bfloat16 v[2][Tl::BOXES][DKV_BN * Tl::COLS];
+  static constexpr int BN = dkv_bn<D>(), IB = item_bufs<D>();
+  __nv_bfloat16 k[IB][Tl::BOXES][BN * Tl::COLS];
+  __nv_bfloat16 v[IB][Tl::BOXES][BN * Tl::COLS];
   __nv_bfloat16 q[DKV_STAGES][Tl::BOXES][DKV_BM * Tl::COLS];
   __nv_bfloat16 dout[DKV_STAGES][Tl::BOXES][DKV_BM * Tl::COLS];
   float lse[DKV_STAGES][DKV_BM];  // the q tile's rows (TMA: 128-aligned)
   float delta[DKV_STAGES][DKV_BM];
-  uint64_t full_kv[2], empty_kv[2], full_q[DKV_STAGES], empty_q[DKV_STAGES];
+  uint64_t full_kv[IB], empty_kv[IB], full_q[DKV_STAGES], empty_q[DKV_STAGES];
 };
 
 // the two consumer warpgroups (named barrier 1)
@@ -195,7 +240,7 @@ __device__ __forceinline__ void pack_frags(const float (&x)[N],
 // ---- dq ----------------------------------------------------------------
 
 // One work item of the host's list: query head bh, its DQ_BM-row q tile at
-// q0, and the keys [lo, hi) its rows can see (lo a multiple of DQ_BN).
+// q0, and the keys [lo, hi) its rows can see (lo a multiple of dq_bn).
 // The list is int32: G + 1 offsets (block b takes items offsets[b] to
 // offsets[b + 1] - 1, in that order), then four ints an item.
 struct QItem {
@@ -212,8 +257,9 @@ __device__ __forceinline__ QItem q_item(const int* __restrict__ items,
 // log2 units) and delta', and the products of one K/V tile.
 template <int D>
 struct DqRows {
-  static constexpr int NS = DQ_BN / 2;  // S and dP accumulators a thread
-  static constexpr int NO = D / 2;      // dQ accumulators a thread
+  static constexpr int BN = dq_bn<D>();
+  static constexpr int NS = BN / 2;  // S and dP accumulators a thread
+  static constexpr int NO = D / 2;   // dQ accumulators a thread
   using Tl = Tile<D>;
   DqSmem<D>& sm;
   int wg, qst, qpos0, qpos1, first, last, t_k, causal, window;
@@ -228,40 +274,40 @@ struct DqRows {
     for (int kk = 0; kk < D / 16; ++kk) {
       const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
       const int at = wg * 64 * Tl::COLS + col;
-      WgmmaSS<DQ_BN>::run(s, k_desc<D>(sm.q[qst][box] + at),
+      WgmmaSS<BN>::run(s, k_desc<D>(sm.q[qst][box] + at),
                           k_desc<D>(sm.k[stage][box] + col), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
       const int at = wg * 64 * Tl::COLS + col;
-      WgmmaSS<DQ_BN>::run(dp, k_desc<D>(sm.dout[qst][box] + at),
+      WgmmaSS<BN>::run(dp, k_desc<D>(sm.dout[qst][box] + at),
                           k_desc<D>(sm.v[stage][box] + col), kk > 0);
     }
   }
 
   // dQ += dS K of the tile in `stage`, started, not committed. K is the
   // MN-major B (the transpose bit): keys 16 kk .. 16 kk + 15 are 16 rows
-  // into each box, the next COLS columns one box (DQ_BN rows) on.
+  // into each box, the next COLS columns one box (BN rows) on.
   __device__ __forceinline__ void start_dq(float (&dq)[NO],
                                            const uint32_t (&dsf)[NS / 8][4],
                                            int stage) {
 #pragma unroll
-    for (int kk = 0; kk < DQ_BN / 16; ++kk)
+    for (int kk = 0; kk < BN / 16; ++kk)
       WgmmaRS<D>::run(dq, dsf[kk],
                       mn_desc<D>(sm.k[stage][0] + kk * 16 * Tl::COLS,
-                                 DQ_BN * Tl::ROW_BYTES));
+                                 BN * Tl::ROW_BYTES));
   }
 
   // dS = P (dP - delta') in place of dP, with P = 2^(S scale log2 e -
   // lse log2 e), 0 where masked, for the tile of keys at k0
   __device__ __forceinline__ void grad(const float (&s)[NS], float (&dp)[NS],
                                        int k0, int tig) const {
-    const bool whole = k0 + DQ_BN <= t_k &&
-                       (!causal || (k0 + DQ_BN - 1 <= first &&
+    const bool whole = k0 + BN <= t_k &&
+                       (!causal || (k0 + BN - 1 <= first &&
                                     (window <= 0 || k0 > last - window)));
 #pragma unroll
-    for (int j = 0; j < DQ_BN / 8; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int kpos = k0 + j * 8 + 2 * tig + e;
@@ -309,13 +355,14 @@ __device__ __forceinline__ void dq_consume(
                   row0 < t_q ? delta[at + row0] : 0.f,
                   row1 < t_q ? delta[at + row1] : 0.f};
   // the item's key tiles j < n; this warpgroup's rows see only [jlo, jhi)
-  const int n = (it.hi - it.lo + DQ_BN - 1) / DQ_BN;
+  constexpr int BN = Rows::BN;
+  const int n = (it.hi - it.lo + BN - 1) / BN;
   int jlo = 0, jhi = n;
   if (rows.last < rows.first) {
     jhi = 0;  // no real row
   } else if (causal) {
-    jhi = min(n, (rows.last - it.lo) / DQ_BN + 1);
-    if (window > 0) jlo = max(0, (rows.first - window + 1 - it.lo) / DQ_BN);
+    jhi = min(n, (rows.last - it.lo) / BN + 1);
+    if (window > 0) jlo = max(0, (rows.first - window + 1 - it.lo) / BN);
   }
   jlo = min(jlo, jhi);
   auto skip = [&]() {  // a tile the warpgroup's rows cannot see
@@ -333,7 +380,7 @@ __device__ __forceinline__ void dq_consume(
   if (jlo < jhi) {
     float s[Rows::NS], dp[Rows::NS];
     uint32_t dsf[Rows::NS / 8][4];
-    int k0 = it.lo + jlo * DQ_BN;
+    int k0 = it.lo + jlo * BN;
     DqRing cur = ring;  // tile j - 1, whose dS K is pending
     mbar_wait(&sm.full_k[cur.stage], cur.phase);
     mbar_wait(&sm.full_v[cur.stage], cur.phase);
@@ -349,7 +396,7 @@ __device__ __forceinline__ void dq_consume(
     for (int j = jlo + 1; j < jhi; ++j) {
       DqRing next = cur;
       next.advance();
-      k0 += DQ_BN;
+      k0 += BN;
       mbar_wait(&sm.full_k[next.stage], next.phase);
       mbar_wait(&sm.full_v[next.stage], next.phase);
       wgmma_fence();
@@ -417,7 +464,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < DqSmem<D>::IB; ++i) {
       mbar_init(&sm.full_q[i], 1);
       mbar_init(&sm.empty_q[i], BWD_CONSUMERS / 32);  // one per warp
     }
@@ -436,9 +483,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     // producer warpgroup: one thread starts every load
     regs_dealloc<PRODUCER_REGS>();
     if (threadIdx.x == BWD_CONSUMERS) {
+      constexpr int BN = dq_bn<D>();
       constexpr uint32_t ROWS_BYTES = DQ_BM * D * sizeof(__nv_bfloat16);
-      constexpr uint32_t TILE_BYTES = DQ_BN * D * sizeof(__nv_bfloat16);
-      ItemRing qr;
+      constexpr uint32_t TILE_BYTES = BN * D * sizeof(__nv_bfloat16);
+      ItemRing<D> qr;
       DqRing ring;
       for (int i = begin; i < end; ++i) {
         const QItem it = q_item(items, i);
@@ -454,7 +502,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                       h * Tl::COLS, it.q0, it.bh);
         }
         qr.advance();
-        for (int k0 = it.lo; k0 < it.hi; k0 += DQ_BN) {
+        for (int k0 = it.lo; k0 < it.hi; k0 += BN) {
           mbar_wait(&sm.empty_k[ring.stage], ring.phase ^ 1);
           mbar_expect_tx(&sm.full_k[ring.stage], TILE_BYTES);
 #pragma unroll
@@ -473,7 +521,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     }
   } else {
     regs_alloc<CONSUMER_REGS>();
-    ItemRing qr;
+    ItemRing<D> qr;
     DqRing ring;
     for (int i = begin; i < end; ++i) {
       mbar_wait(&sm.full_q[qr.stage], qr.phase);
@@ -487,7 +535,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 // ---- dk / dv -----------------------------------------------------------
 
 // One work item of the host's list: kv head bkv (b * Hkv + kv head), its
-// DKV_BN-key tile at k0, query head r of its group, and the query rows
+// dkv_bn-key tile at k0, query head r of its group, and the query rows
 // [lo, hi) that can see the tile (lo a multiple of DKV_BM; empty when
 // hi <= lo). The list: G + 1 offsets, then five ints an item.
 struct KvItem {
@@ -500,17 +548,29 @@ __device__ __forceinline__ KvItem kv_item(const int* __restrict__ items,
   return {p[0], p[1], p[2], p[3], p[4]};
 }
 
-// One consumer warpgroup of dkv: 64 keys of the item's tile and the
+// One consumer warpgroup of dkv: 64 keys of the item's tile (at D = 256
+// the item's only 64, with DW = D / 2 of its columns: dkv_split) and the
 // products of one q tile. Its accumulators are transposed against dq's:
 // rows are keys, columns query rows, so lse and delta' are per column.
 template <int D>
 struct DkvKeys {
+  static constexpr bool SPLIT = dkv_split<D>();
+  static constexpr int DW = SPLIT ? D / 2 : D;  // dK, dV columns it owns
   static constexpr int NS = DKV_BM / 2;  // S^T and dP^T accumulators
-  static constexpr int NO = D / 2;       // dK, dV accumulators a thread
+  static constexpr int NO = DW / 2;      // dK, dV accumulators a thread
   using Tl = Tile<D>;
   DkvSmem<D>& sm;
   int wg, kst, key0, key1, first, t_q, t_k, offset, causal, window;
   float scale_log2;
+
+  // the warpgroup's first row in the kept K/V tiles and its first column
+  // box of dK and dV (of Q's and dO's boxes in the output products)
+  __device__ __forceinline__ int key_row() const {
+    return SPLIT ? 0 : wg * 64;
+  }
+  __device__ __forceinline__ int box0() const {
+    return SPLIT ? wg * Tl::BOXES / 2 : 0;
+  }
 
   // S^T = K Q^T and dP^T = V dO^T of the q tile in `stage`, started, not
   // committed; K and V are this warpgroup's 64 rows of the kept tiles
@@ -519,28 +579,28 @@ struct DkvKeys {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
-      const int at = wg * 64 * Tl::COLS + col;
+      const int at = key_row() * Tl::COLS + col;
       WgmmaSS<DKV_BM>::run(s, k_desc<D>(sm.k[kst][box] + at),
                            k_desc<D>(sm.q[stage][box] + col), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int box = kk / Tl::KSTEPS, col = (kk % Tl::KSTEPS) * 16;
-      const int at = wg * 64 * Tl::COLS + col;
+      const int at = key_row() * Tl::COLS + col;
       WgmmaSS<DKV_BM>::run(dp, k_desc<D>(sm.v[kst][box] + at),
                            k_desc<D>(sm.dout[stage][box] + col), kk > 0);
     }
   }
 
-  // acc += A B with B = the q tile `tile` of `stage` read MN-major (query
-  // rows 16 kk .. 16 kk + 15 are 16 rows into each box), started, not
-  // committed
+  // acc += A B with B = DW columns of a q tile from box `tile` on, read
+  // MN-major (query rows 16 kk .. 16 kk + 15 are 16 rows into each box),
+  // started, not committed
   __device__ __forceinline__ static void start_rs(
       float (&acc)[NO], const uint32_t (&a)[NS / 8][4],
       const __nv_bfloat16* tile) {
 #pragma unroll
     for (int kk = 0; kk < DKV_BM / 16; ++kk)
-      WgmmaRS<D>::run(acc, a[kk],
+      WgmmaRS<DW>::run(acc, a[kk],
                       mn_desc<D>(tile + kk * 16 * Tl::COLS,
                                  DKV_BM * Tl::ROW_BYTES));
   }
@@ -623,10 +683,12 @@ __device__ __forceinline__ void dkv_consume(
     int t_k, int causal, float scale, float scale_log2, int window,
     DkvRing& ring) {
   using Keys = DkvKeys<D>;
+  using Tl = Tile<D>;
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
   const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
   const int offset = causal ? t_k - t_q : 0;
-  const int first = it.k0 + wg * 64;  // the warpgroup's first key
+  // the warpgroup's first key (split: both take the item's 64)
+  const int first = it.k0 + (Keys::SPLIT ? 0 : wg * 64);
   const int key0 = first + warp * 16 + g, key1 = key0 + 8;
   Keys keys{sm,     wg,     kst,    key0,   key1,      first,
                   t_q,    t_k,    offset, causal, window,    scale_log2};
@@ -668,12 +730,12 @@ __device__ __forceinline__ void dkv_consume(
     keys.probs(sp, it.lo + s * DKV_BM, st, tig);
     pack_frags(sp, pf);
     wgmma_fence();
-    Keys::start_rs(dv, pf, sm.dout[st][0]);  // dV += P^T dO
+    Keys::start_rs(dv, pf, sm.dout[st][keys.box0()]);  // dV += P^T dO
     wgmma_commit();
     keys.dscores(sp, dp, st, tig);  // while dV runs
     pack_frags(dp, dsf);
     wgmma_fence();
-    Keys::start_rs(dk, dsf, sm.q[st][0]);  // dK += dS^T Q
+    Keys::start_rs(dk, dsf, sm.q[st][keys.box0()]);  // dK += dS^T Q
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv);
@@ -687,7 +749,8 @@ __device__ __forceinline__ void dkv_consume(
   if (reps > 1) {
     // the group's sum, in the order r = 0, 1, ...: wait for item r - 1,
     // add to its partial, pass the tile on to item r + 1
-    const int tile = it.bkv * ((t_k + DKV_BN - 1) / DKV_BN) + it.k0 / DKV_BN;
+    constexpr int BN = DkvSmem<D>::BN;
+    const int tile = it.bkv * ((t_k + BN - 1) / BN) + it.k0 / BN;
     float* part_k = scratch + (size_t)tile * 2 * BWD_CONSUMERS * Keys::NO;
     float* part_v = part_k + BWD_CONSUMERS * Keys::NO;
     int* count = counters + tile;
@@ -707,10 +770,11 @@ __device__ __forceinline__ void dkv_consume(
       return;
     }
   }
-  const size_t base = (size_t)it.bkv * t_k * D;
+  // the warpgroup's columns start at box0's
+  const size_t base = (size_t)it.bkv * t_k * D + keys.box0() * Tl::COLS;
   if (key0 < t_k) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < Keys::DW / 8; ++j) {
       const size_t at = base + (size_t)key0 * D + j * 8 + 2 * tig;
       *reinterpret_cast<__nv_bfloat162*>(dk_out + at) =
           __floats2bfloat162_rn(dk[4 * j] * scale, dk[4 * j + 1] * scale);
@@ -720,7 +784,7 @@ __device__ __forceinline__ void dkv_consume(
   }
   if (key1 < t_k) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < Keys::DW / 8; ++j) {
       const size_t at = base + (size_t)key1 * D + j * 8 + 2 * tig;
       *reinterpret_cast<__nv_bfloat162*>(dk_out + at) = __floats2bfloat162_rn(
           dk[4 * j + 2] * scale, dk[4 * j + 3] * scale);
@@ -753,7 +817,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < DkvSmem<D>::IB; ++i) {
       mbar_init(&sm.full_kv[i], 1);
       mbar_init(&sm.empty_kv[i], BWD_CONSUMERS / 32);  // one per warp
     }
@@ -772,11 +836,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     // tile's box then starts 16-byte aligned
     regs_dealloc<PRODUCER_REGS>();
     if (threadIdx.x == BWD_CONSUMERS) {
-      constexpr uint32_t KV_BYTES = DKV_BN * D * sizeof(__nv_bfloat16);
+      constexpr uint32_t KV_BYTES =
+          DkvSmem<D>::BN * D * sizeof(__nv_bfloat16);
       constexpr uint32_t Q_BYTES =
           2 * DKV_BM * D * sizeof(__nv_bfloat16) + 2 * DKV_BM * sizeof(float);
       const int stride = (t_q + 3) / 4 * 4;
-      ItemRing kr;
+      ItemRing<D> kr;
       DkvRing ring;
       for (int i = begin; i < end; ++i) {
         const KvItem it = kv_item(items, i);
@@ -812,7 +877,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
     }
   } else {
     regs_alloc<CONSUMER_REGS>();
-    ItemRing kr;
+    ItemRing<D> kr;
     DkvRing ring;
     for (int i = begin; i < end; ++i) {
       mbar_wait(&sm.full_kv[kr.stage], kr.phase);
@@ -850,21 +915,33 @@ __device__ __forceinline__ RowRange row_range(int k0, int t_q, int t_k,
 // row, columns tx + 16 c. Tiles are stored transposed with padded leading
 // dims so that shared-memory reads are conflict-free or broadcasts.
 
-// Copy rows [row0, row0 + 64) of a [rows, D] float32 matrix into a
-// transposed [D][ld] tile; rows past n_rows are zero-filled.
-template <int D>
+// Copy columns [col0, col0 + C) of rows [row0, row0 + 64) of a [rows, D]
+// float32 matrix into a transposed [C][ld] tile; rows past n_rows are
+// zero-filled.
+template <int D, int C = D>
 __device__ __forceinline__ void load_tile_t(float* dst, int ld,
                                             const float* src, int row0,
-                                            int n_rows) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += FMA_THREADS) {
-    const int r = idx / D, d = idx % D;
-    dst[d * ld + r] = row0 + r < n_rows ? src[(size_t)(row0 + r) * D + d] : 0.f;
+                                            int n_rows, int col0 = 0) {
+  for (int idx = threadIdx.x; idx < 64 * C; idx += FMA_THREADS) {
+    const int r = idx / C, d = idx % C;
+    dst[d * ld + r] =
+        row0 + r < n_rows ? src[(size_t)(row0 + r) * D + col0 + d] : 0.f;
   }
+}
+
+// Columns of the streamed tiles' chunks (K and V in dq, q and dO in
+// dk/dv): the whole row up to D = 128; at D = 256 four chunks of 64, so
+// that the tiles fit in shared memory (whole, dq's four would take 277
+// KiB and dk/dv's 293 KiB).
+template <int D>
+__host__ __device__ constexpr int f32_chunk() {
+  return D > 128 ? 64 : D;
 }
 
 template <int D>
 constexpr size_t dq_f32_smem_floats() {
-  return 4 * (size_t)D * LDQ  // q, dO, K, V tiles, transposed
+  return 2 * (size_t)D * LDQ                 // q, dO tiles, transposed
+         + 2 * (size_t)f32_chunk<D>() * LDK  // a chunk of K and V
          + (size_t)BK * LDQ;  // dS tile, transposed [key][row]
 }
 
@@ -878,12 +955,15 @@ __global__ void __launch_bounds__(FMA_THREADS)
                      int heads, int kv_heads, int t_q, int t_k, int causal,
                      float scale, int window) {
   constexpr int DC = D / 16;  // output columns per thread
+  // K and V pass through in CHUNKS chunks of C columns, CC of a thread's
+  // output columns each
+  constexpr int C = f32_chunk<D>(), CHUNKS = D / C, CC = C / 16;
   extern __shared__ float smem[];
   float* qs = smem;             // [D][LDQ]
   float* dos = qs + D * LDQ;    // [D][LDQ]
-  float* ks = dos + D * LDQ;    // [D][LDK]
-  float* vs = ks + D * LDK;     // [D][LDK]
-  float* dss = vs + D * LDK;    // [BK][LDQ]
+  float* ks = dos + D * LDQ;    // [C][LDK]
+  float* vs = ks + C * LDK;     // [C][LDK]
+  float* dss = vs + C * LDK;    // [BK][LDQ]
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -906,36 +986,37 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 
   for (int k0 = range.lo; k0 < range.hi; k0 += BK) {
-    __syncthreads();  // previous tile's readers are done
-    load_tile_t<D>(ks, LDK, kp, k0, t_k);
-    load_tile_t<D>(vs, LDK, vp, k0, t_k);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int h = 0; h < CHUNKS; ++h) {
+      __syncthreads();  // the previous chunk's or tile's readers are done
+      load_tile_t<D, C>(ks, LDK, kp, k0, t_k, h * C);
+      load_tile_t<D, C>(vs, LDK, vp, k0, t_k, h * C);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], da[4], b[4], vb[4];
+      for (int d = 0; d < C; ++d) {
+        float a[4], da[4], b[4], vb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[d * LDQ + ty + 16 * i];
-        da[i] = dos[d * LDQ + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = ks[d * LDK + tx + 16 * j];
-        vb[j] = vs[d * LDK + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          a[i] = qs[(h * C + d) * LDQ + ty + 16 * i];
+          da[i] = dos[(h * C + d) * LDQ + ty + 16 * i];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+          b[j] = ks[d * LDK + tx + 16 * j];
+          vb[j] = vs[d * LDK + tx + 16 * j];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], b[j], s[i][j]);
+            dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -949,17 +1030,27 @@ __global__ void __launch_bounds__(FMA_THREADS)
     }
     __syncthreads();
 
+    // dS K, chunk by chunk of K's columns: the last is still loaded
+#pragma unroll
+    for (int h = CHUNKS - 1; h >= 0; --h) {
+      if (h != CHUNKS - 1) {
+        __syncthreads();  // the previous chunk's readers are done
+        load_tile_t<D, C>(ks, LDK, kp, k0, t_k, h * C);
+        __syncthreads();
+      }
 #pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[DC];
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], w[CC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = dss[kk * LDQ + ty + 16 * i];
+        for (int i = 0; i < 4; ++i) a[i] = dss[kk * LDQ + ty + 16 * i];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) w[c] = ks[(tx + 16 * c) * LDK + kk];
+        for (int c = 0; c < CC; ++c) w[c] = ks[(tx + 16 * c) * LDK + kk];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(a[i], w[c], acc[i][c]);
+          for (int c = 0; c < CC; ++c)
+            acc[i][h * CC + c] = fmaf(a[i], w[c], acc[i][h * CC + c]);
+      }
     }
   }
 
@@ -975,7 +1066,8 @@ __global__ void __launch_bounds__(FMA_THREADS)
 
 template <int D>
 constexpr size_t dkv_f32_smem_floats() {
-  return 4 * (size_t)D * LDK    // K, V, q, dO tiles, transposed
+  return 2 * (size_t)D * LDK                 // K, V tiles, transposed
+         + 2 * (size_t)f32_chunk<D>() * LDK  // a chunk of q and dO
          + 2 * (size_t)BQ * LDK  // P and dS tiles, [row][key]
          + 2 * BQ;               // lse, delta' of the q tile
 }
@@ -990,12 +1082,15 @@ __global__ void __launch_bounds__(FMA_THREADS)
                       float* __restrict__ dv, int heads, int kv_heads, int t_q,
                       int t_k, int causal, float scale, int window) {
   constexpr int DC = D / 16;  // output columns per thread
+  // q and dO pass through in CHUNKS chunks of C columns, CC of a
+  // thread's output columns each
+  constexpr int C = f32_chunk<D>(), CHUNKS = D / C, CC = C / 16;
   extern __shared__ float smem[];
   float* ks = smem;            // [D][LDK]
   float* vs = ks + D * LDK;    // [D][LDK]
-  float* qs = vs + D * LDK;    // [D][LDK] (64 query rows)
-  float* dos = qs + D * LDK;   // [D][LDK]
-  float* ps = dos + D * LDK;   // [BQ][LDK]
+  float* qs = vs + D * LDK;    // [C][LDK] (64 query rows)
+  float* dos = qs + C * LDK;   // [C][LDK]
+  float* ps = dos + C * LDK;   // [BQ][LDK]
   float* dss = ps + BQ * LDK;  // [BQ][LDK]
   float* lt = dss + BQ * LDK;  // [BQ]
   float* dt = lt + BQ;         // [BQ]
@@ -1019,15 +1114,14 @@ __global__ void __launch_bounds__(FMA_THREADS)
   for (int r = 0; r < reps; ++r) {
     const int bh = first_bh + r;
     for (int qr0 = rows.lo; qr0 < rows.hi; qr0 += BQ) {
+      const float* qp = q + (size_t)bh * t_q * D;
+      const float* dop = dout + (size_t)bh * t_q * D;
       __syncthreads();  // previous tile's readers are done
-      load_tile_t<D>(qs, LDK, q + (size_t)bh * t_q * D, qr0, t_q);
-      load_tile_t<D>(dos, LDK, dout + (size_t)bh * t_q * D, qr0, t_q);
       for (int c = tid; c < BQ; c += FMA_THREADS) {
         const bool in = qr0 + c < t_q;
         lt[c] = in ? lse[(size_t)bh * t_q + qr0 + c] : 0.f;
         dt[c] = in ? delta[(size_t)bh * t_q + qr0 + c] : 0.f;
       }
-      __syncthreads();
 
       // S^T and dP^T: keys ty + 16 i, query rows tx + 16 j
       float s[4][4], dp[4][4];
@@ -1035,26 +1129,32 @@ __global__ void __launch_bounds__(FMA_THREADS)
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int h = 0; h < CHUNKS; ++h) {
+        if (h > 0) __syncthreads();  // the previous chunk's readers are done
+        load_tile_t<D, C>(qs, LDK, qp, qr0, t_q, h * C);
+        load_tile_t<D, C>(dos, LDK, dop, qr0, t_q, h * C);
+        __syncthreads();
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float a[4], va[4], b[4], db[4];
+        for (int d = 0; d < C; ++d) {
+          float a[4], va[4], b[4], db[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = ks[d * LDK + ty + 16 * i];
-          va[i] = vs[d * LDK + ty + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b[j] = qs[d * LDK + tx + 16 * j];
-          db[j] = dos[d * LDK + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
+            a[i] = ks[(h * C + d) * LDK + ty + 16 * i];
+            va[i] = vs[(h * C + d) * LDK + ty + 16 * i];
+          }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(a[i], b[j], s[i][j]);
-            dp[i][j] = fmaf(va[i], db[j], dp[i][j]);
+            b[j] = qs[d * LDK + tx + 16 * j];
+            db[j] = dos[d * LDK + tx + 16 * j];
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(a[i], b[j], s[i][j]);
+              dp[i][j] = fmaf(va[i], db[j], dp[i][j]);
+            }
+        }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1071,26 +1171,38 @@ __global__ void __launch_bounds__(FMA_THREADS)
       }
       __syncthreads();
 
+      // P^T dO and dS^T Q, chunk by chunk of their columns: the last is
+      // still loaded
+#pragma unroll
+      for (int h = CHUNKS - 1; h >= 0; --h) {
+        if (h != CHUNKS - 1) {
+          __syncthreads();  // the previous chunk's readers are done
+          load_tile_t<D, C>(qs, LDK, qp, qr0, t_q, h * C);
+          load_tile_t<D, C>(dos, LDK, dop, qr0, t_q, h * C);
+          __syncthreads();
+        }
 #pragma unroll 4
-      for (int c2 = 0; c2 < BQ; ++c2) {
-        float p[4], ds[4], wo[DC], wq[DC];
+        for (int c2 = 0; c2 < BQ; ++c2) {
+          float p[4], ds[4], wo[CC], wq[CC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          p[i] = ps[c2 * LDK + ty + 16 * i];
-          ds[i] = dss[c2 * LDK + ty + 16 * i];
-        }
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          wo[c] = dos[(tx + 16 * c) * LDK + c2];
-          wq[c] = qs[(tx + 16 * c) * LDK + c2];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            dv_acc[i][c] = fmaf(p[i], wo[c], dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(ds[i], wq[c], dk_acc[i][c]);
+          for (int i = 0; i < 4; ++i) {
+            p[i] = ps[c2 * LDK + ty + 16 * i];
+            ds[i] = dss[c2 * LDK + ty + 16 * i];
           }
+#pragma unroll
+          for (int c = 0; c < CC; ++c) {
+            wo[c] = dos[(tx + 16 * c) * LDK + c2];
+            wq[c] = qs[(tx + 16 * c) * LDK + c2];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < CC; ++c) {
+              const int o = h * CC + c;
+              dv_acc[i][o] = fmaf(p[i], wo[c], dv_acc[i][o]);
+              dk_acc[i][o] = fmaf(ds[i], wq[c], dk_acc[i][o]);
+            }
+        }
       }
     }
   }
@@ -1123,8 +1235,10 @@ int launch_dq(int is_bf16, const void* q, const void* k, const void* v,
     CUtensorMap q_map, do_map, k_map, v_map;
     if ((err = tensor_map(&q_map, q, D, t_q, batch * heads, DQ_BM)) ||
         (err = tensor_map(&do_map, dout, D, t_q, batch * heads, DQ_BM)) ||
-        (err = tensor_map(&k_map, k, D, t_k, batch * kv_heads, DQ_BN)) ||
-        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads, DQ_BN)))
+        (err = tensor_map(&k_map, k, D, t_k, batch * kv_heads,
+                          dq_bn<D>())) ||
+        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads,
+                          dq_bn<D>())))
       return (int)err;
     const size_t smem = smem_bytes<DqSmem<D>>();
     err = allow_smem(flash_bwd_dq_bf16<D>, smem);
@@ -1163,8 +1277,10 @@ int launch_dkv(int is_bf16, const void* q, const void* k, const void* v,
     // lse and delta' as [B*H, Tq rounded up to 4] (padded by the caller)
     const size_t rows = (size_t)batch * heads * ((t_q + 3) / 4 * 4);
     CUtensorMap k_map, v_map, q_map, do_map, lse_map, delta_map;
-    if ((err = tensor_map(&k_map, k, D, t_k, batch * kv_heads, DKV_BN)) ||
-        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads, DKV_BN)) ||
+    if ((err = tensor_map(&k_map, k, D, t_k, batch * kv_heads,
+                          dkv_bn<D>())) ||
+        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads,
+                          dkv_bn<D>())) ||
         (err = tensor_map(&q_map, q, D, t_q, batch * heads, DKV_BM)) ||
         (err = tensor_map(&do_map, dout, D, t_q, batch * heads, DKV_BM)) ||
         (err = tensor_map_f32(&lse_map, lse, rows, DKV_BM)) ||
@@ -1209,9 +1325,9 @@ cudaError_t bad_shape(int batch, int heads, int kv_heads, int t_q, int t_k,
 // takes the work list (on the card) dealt to `blocks` blocks; bf16 dkv
 // takes lse and delta' with their rows padded to a multiple of 4 floats
 // ([B*H, Tq rounded up to 4]) and, with more than one query head per kv
-// head, a float32 scratch of B * Hkv * ceil(Tk / 128) * 128 * D * 2
-// values and B * Hkv * ceil(Tk / 128) int32 counters, zeroed. float32
-// ignores all of these.
+// head, a float32 scratch of B * Hkv * ceil(Tk / N) * N * D * 2 values
+// and B * Hkv * ceil(Tk / N) int32 counters, zeroed, where N = dkv_bn
+// (128, or 64 at D = 256). float32 ignores all of these.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, const void* work,
@@ -1224,6 +1340,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bad != cudaSuccess) return (int)bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* w = static_cast<const int*>(work);
+  if (head_dim == 256)
+    return launch_dq<256>(is_bf16, q, k, v, dout, lse, delta, dq, w, blocks,
+                          batch, heads, kv_heads, t_q, t_k, causal, scale,
+                          window, s);
   if (head_dim == 128)
     return launch_dq<128>(is_bf16, q, k, v, dout, lse, delta, dq, w, blocks,
                           batch, heads, kv_heads, t_q, t_k, causal, scale,
@@ -1258,6 +1378,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   const int* w = static_cast<const int*>(work);
   float* sc = static_cast<float*>(scratch);
   int* ct = static_cast<int*>(counters);
+  if (head_dim == 256)
+    return launch_dkv<256>(is_bf16, q, k, v, dout, lse, delta, dk, dv, w, sc,
+                           ct, blocks, batch, heads, kv_heads, t_q, t_k,
+                           causal, scale, window, s);
   if (head_dim == 128)
     return launch_dkv<128>(is_bf16, q, k, v, dout, lse, delta, dk, dv, w, sc,
                            ct, blocks, batch, heads, kv_heads, t_q, t_k,

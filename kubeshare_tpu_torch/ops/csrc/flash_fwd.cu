@@ -75,10 +75,16 @@
 // float32 inputs have no tensor-core path with float32 products (TF32
 // would change the numbers), so flash_fwd_f32 does them with FMAs on the
 // CUDA cores (67 TFLOP/s peak).
-// Head dims: instances for 16, 32, 64 and 128, bf16 and float32. The
-// wrapper (../attention.py) zero-pads any other head dim up to 128 to the
+// Head dims: instances for 16, 32, 64, 128 and 256, bf16 and float32. The
+// wrapper (../attention.py) zero-pads any other head dim up to 256 to the
 // next of these and slices the output back; zero columns add nothing to
 // Q K^T, and V's give zero output columns.
+// D = 256 (bf16) takes 64-key K/V tiles (fwd_bn): with 128-key tiles the
+// 128-row Q (64 KiB) and two stages of K and V (128 KiB each) would need
+// 320 KiB of shared memory; with 64 they take 192 KiB, and a consumer
+// thread holds O (128 float32), S (32) and P's fragments (16). P V is
+// then one m64n256k16 product a k16 step, over V's four column boxes. The
+// float32 kernel's tiles (210 KiB at D = 256) fit as they are.
 
 #include <math.h>
 
@@ -92,8 +98,15 @@ namespace {
 constexpr int FWD_BM = 128;         // query rows per block
 constexpr int FWD_THREADS = 384;    // consumer warpgroups 0, 1; producer 2
 constexpr int FWD_CONSUMERS = 256;  // threads of the consumer warpgroups
-constexpr int FWD_BN = 128;         // keys per K/V tile
 constexpr int FWD_STAGES = 2;       // depth of the K/V ring
+
+// keys per K/V tile: 128, or 64 at D = 256 (shared memory; see the top).
+// FLASH_FWD_BLOCK_K / flash_tiles in ../attention.py build the work list
+// with the same width.
+template <int D>
+__host__ __device__ constexpr int fwd_bn() {
+  return D > 128 ? 64 : 128;
+}
 
 // Tiles as Tile<D>::BOXES column boxes of [rows][COLS] bf16 (hopper.cuh);
 // every box is a multiple of 8 rows, so all start on the swizzle's period.
@@ -102,9 +115,10 @@ constexpr int FWD_STAGES = 2;       // depth of the K/V ring
 template <int D>
 struct FwdSmem {
   using Tl = Tile<D>;
+  static constexpr int BN = fwd_bn<D>();
   __nv_bfloat16 q[Tl::BOXES][FWD_BM * Tl::COLS];
-  __nv_bfloat16 k[FWD_STAGES][Tl::BOXES][FWD_BN * Tl::COLS];
-  __nv_bfloat16 v[FWD_STAGES][Tl::BOXES][FWD_BN * Tl::COLS];
+  __nv_bfloat16 k[FWD_STAGES][Tl::BOXES][BN * Tl::COLS];
+  __nv_bfloat16 v[FWD_STAGES][Tl::BOXES][BN * Tl::COLS];
   uint64_t full_q, empty_q, full_k[FWD_STAGES], full_v[FWD_STAGES];
   uint64_t empty_k[FWD_STAGES], empty_v[FWD_STAGES];
 };
@@ -131,8 +145,9 @@ __device__ __forceinline__ void turn_pass(int wg, bool last = false) {
 // products and softmax of one key tile.
 template <int D>
 struct FwdRows {
-  static constexpr int NS = FWD_BN / 2;  // score accumulators a thread
-  static constexpr int NO = D / 2;       // output accumulators a thread
+  static constexpr int BN = fwd_bn<D>();
+  static constexpr int NS = BN / 2;  // score accumulators a thread
+  static constexpr int NO = D / 2;   // output accumulators a thread
   using Tl = Tile<D>;
   FwdSmem<D>& sm;
   int wg, qpos0, qpos1, first, last, t_k, causal, window;
@@ -149,7 +164,7 @@ struct FwdRows {
       const uint64_t a =
           k_desc<D>(sm.q[box] + wg * 64 * Tl::COLS + col);
       const uint64_t b = k_desc<D>(sm.k[stage][box] + col);
-      WgmmaSS<FWD_BN>::run(s, a, b, kk > 0);
+      WgmmaSS<BN>::run(s, a, b, kk > 0);
     }
   }
 
@@ -158,11 +173,11 @@ struct FwdRows {
                                            const uint32_t (&pf)[NS / 8][4],
                                            int stage) {
 #pragma unroll
-    for (int kk = 0; kk < FWD_BN / 16; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
       // keys 16 kk .. 16 kk + 15: 16 rows into each box; the next COLS
-      // output columns one box (FWD_BN rows) on
+      // output columns one box (BN rows) on
       const uint64_t b = mn_desc<D>(sm.v[stage][0] + kk * 16 * Tl::COLS,
-                                    FWD_BN * Tl::ROW_BYTES);
+                                    BN * Tl::ROW_BYTES);
       WgmmaRS<D>::run(o, pf[kk], b);
     }
   }
@@ -173,12 +188,12 @@ struct FwdRows {
   __device__ __forceinline__ void softmax(float (&s)[NS], int k0, int tig) {
     // the per-element mask only where some (row, key) pair of the tile is
     // hidden: the diagonal, the window's edge, the ragged end
-    const bool whole = k0 + FWD_BN <= t_k &&
-                       (!causal || (k0 + FWD_BN - 1 <= first &&
+    const bool whole = k0 + BN <= t_k &&
+                       (!causal || (k0 + BN - 1 <= first &&
                                     (window <= 0 || k0 > last - window)));
     if (!whole) {
 #pragma unroll
-      for (int j = 0; j < FWD_BN / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kpos = k0 + j * 8 + 2 * tig + e;
@@ -190,7 +205,7 @@ struct FwdRows {
     }
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < FWD_BN / 8; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
@@ -212,7 +227,7 @@ struct FwdRows {
     const float b1 = m1 == NEG_INF ? 0.f : m1 * scale_log2;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < FWD_BN / 8; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
       s[4 * j] = exp2_approx(fmaf(s[4 * j], scale_log2, -b0));
       s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -b0));
       s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -b1));
@@ -229,7 +244,7 @@ struct FwdRows {
   __device__ __forceinline__ static void pack(const float (&s)[NS],
                                               uint32_t (&pf)[NS / 8][4]) {
 #pragma unroll
-    for (int j = 0; j < FWD_BN / 8; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
       pf[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);  // row g
       pf[j / 2][(j % 2) * 2 + 1] =
           pack_bf16(s[4 * j + 2], s[4 * j + 3]);  // row g + 8
@@ -250,7 +265,8 @@ struct FwdRows {
 using FwdRing = Ring<FWD_STAGES>;  // the K/V ring
 
 // One work item of the host's list: query head bh, its FWD_BM-row q tile
-// at q0, and the keys [lo, hi) its rows can see (lo a multiple of FWD_BN).
+// at q0, and the keys [lo, hi) its rows can see (lo a multiple of
+// fwd_bn<D>()).
 // The list is int32: G + 1 offsets (block b takes items offsets[b] to
 // offsets[b + 1] - 1, in that order), then four ints an item.
 struct FwdItem {
@@ -293,7 +309,7 @@ __device__ __forceinline__ void fwd_consume(
   for (int i = 0; i < Rows::NO; ++i) o[i] = 0.f;
   float s[Rows::NS];
   uint32_t pf[Rows::NS / 8][4];
-  const int n_tiles = (it.hi - it.lo + FWD_BN - 1) / FWD_BN;
+  const int n_tiles = (it.hi - it.lo + Rows::BN - 1) / Rows::BN;
   int k0 = it.lo;
   FwdRing cur = ring;  // tile j - 1, whose V is pending
   mbar_wait(&sm.full_k[cur.stage], cur.phase);
@@ -310,7 +326,7 @@ __device__ __forceinline__ void fwd_consume(
   for (int j = 1; j < n_tiles; ++j) {
     FwdRing next = cur;
     next.advance();
-    k0 += FWD_BN;
+    k0 += Rows::BN;
     rows.rescale(o);
     mbar_wait(&sm.full_k[next.stage], next.phase);
     turn_wait(wg);
@@ -407,7 +423,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     // producer warpgroup: one thread starts every load
     regs_dealloc<40>();
     if (threadIdx.x == FWD_CONSUMERS) {
-      constexpr uint32_t KV_BYTES = FWD_BN * D * sizeof(__nv_bfloat16);
+      constexpr int BN = fwd_bn<D>();
+      constexpr uint32_t KV_BYTES = BN * D * sizeof(__nv_bfloat16);
       FwdRing ring;
       for (int i = begin; i < end; ++i) {
         const FwdItem it = fwd_item(items, i);
@@ -420,7 +437,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         for (int h = 0; h < Tl::BOXES; ++h)
           tma_load_3d(sm.q[h], &q_map, &sm.full_q, h * Tl::COLS, it.q0,
                       it.bh);
-        for (int k0 = it.lo; k0 < it.hi; k0 += FWD_BN) {
+        for (int k0 = it.lo; k0 < it.hi; k0 += BN) {
           // a stage is free once both warpgroups released it; the first
           // round passes
           mbar_wait(&sm.empty_k[ring.stage], ring.phase ^ 1);
@@ -606,8 +623,10 @@ int launch(int is_bf16, const void* q, const void* k, const void* v,
     if (work == nullptr || blocks <= 0) return (int)cudaErrorInvalidValue;
     CUtensorMap q_map, k_map, v_map;
     if ((err = tensor_map(&q_map, q, D, t_q, batch * heads, FWD_BM)) ||
-        (err = tensor_map(&k_map, k, D, t_k, batch * kv_heads, FWD_BN)) ||
-        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads, FWD_BN)))
+        (err = tensor_map(&k_map, k, D, t_k, batch * kv_heads,
+                          fwd_bn<D>())) ||
+        (err = tensor_map(&v_map, v, D, t_k, batch * kv_heads,
+                          fwd_bn<D>())))
       return (int)err;
     const size_t smem = smem_bytes<FwdSmem<D>>();
     err = allow_smem(flash_fwd_bf16<D>, smem);
@@ -649,6 +668,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   if (dev != cudaSuccess) return (int)dev;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* w = static_cast<const int*>(work);
+  if (head_dim == 256)
+    return launch<256>(is_bf16, q, k, v, out, lse, w, blocks, batch, heads,
+                       kv_heads, t_q, t_k, causal, scale, window, s);
   if (head_dim == 128)
     return launch<128>(is_bf16, q, k, v, out, lse, w, blocks, batch, heads,
                        kv_heads, t_q, t_k, causal, scale, window, s);

@@ -8,7 +8,7 @@
 // Shared-memory tiles are column boxes of [rows][COLS] bf16, each written
 // by one TMA box with the swizzle as wide as a box's row (a box's inner
 // extent is at most the swizzle's width): COLS = 64 with the 128-byte
-// swizzle for head dims 64 and 128, COLS = 32 with the 64-byte swizzle
+// swizzle for head dims 64, 128 and 256, COLS = 32 with the 64-byte swizzle
 // for head dim 32, COLS = 16 with the 32-byte swizzle for head dim 16
 // (Tile<D>). Row r sits at r * ROW_BYTES and its 16-byte chunk c at chunk
 // c ^ (r % 8) (128-byte), c ^ ((r / 2) % 4) (64-byte) or c ^ ((r / 4) % 2)
@@ -45,8 +45,9 @@ struct Tile {
   static constexpr int ROW_BYTES = COLS * 2;
   static constexpr int GROUP_BYTES = 8 * ROW_BYTES;
   static constexpr int KSTEPS = COLS / 16;
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "the flash kernels are built for head dims 16, 32, 64, 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "the flash kernels are built for head dims 16, 32, 64, 128, "
+                "256");
   static_assert(BOXES >= 1 && BOXES * COLS == D, "a row is whole boxes");
 };
 
@@ -243,11 +244,35 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define HK_R128                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "      \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "      \
+  "%122, %123, %124, %125, %126, %127}"
 
 // d (+)= A B with A and B in shared memory, both K-major; accumulate when
 // `accumulate` is nonzero, else overwrite d.
 template <int N>
 struct WgmmaSS;
+
+template <>
+struct WgmmaSS<32> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HK_R16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : HK_F16(d, 0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
 
 template <>
 struct WgmmaSS<64> {
@@ -336,12 +361,28 @@ struct WgmmaRS<128> {
   }
 };
 
+template <>
+struct WgmmaRS<256> {
+  __device__ __forceinline__ static void run(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HK_R128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : HK_F16(d, 0), HK_F16(d, 16), HK_F16(d, 32), HK_F16(d, 48),
+          HK_F16(d, 64), HK_F16(d, 80), HK_F16(d, 96), HK_F16(d, 112)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 #undef HK_F4
 #undef HK_F16
 #undef HK_R8
 #undef HK_R16
 #undef HK_R32
 #undef HK_R64
+#undef HK_R128
 
 // ---- host side: tensor maps and the card -------------------------------
 

@@ -206,8 +206,10 @@ def test_mha_dispatch_rule(monkeypatch):
     ((1, 4, 256, 96), (1, 2, 256, 96), True, True),       # 96: padded
     ((1, 4, 256, 16), (1, 2, 256, 16), True, True),       # head dim 16
     ((1, 4, 256, 8), (1, 2, 256, 8), True, True),         # 8: padded
-    ((1, 4, 256, 160), (1, 2, 256, 160), True, False),    # over 128
+    ((1, 4, 256, 257), (1, 2, 256, 257), True, False),    # over 256
     ((1, 4, 256, 32), (1, 2, 256, 32), False, True),      # head dim 32
+    ((1, 8, 256, 256), (1, 1, 256, 256), True, True),     # head dim 256
+    ((1, 4, 256, 160), (1, 2, 256, 160), True, True),     # 160: padded
 ])
 def test_flash_eligible_is_what_the_kernels_take(q_shape, k_shape, causal,
                                                  want):

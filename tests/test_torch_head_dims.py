@@ -2,9 +2,10 @@
 against kubeshare_tpu/ops/attention.py at D in {8, 16, 24, 48, 96}.
 
 The reference's flash path has no rule on the head dim; the port's
-kernels are built for 16, 32, 64 and 128, and every other D up to 128
-runs the next of those on zero-padded inputs (``padded_forward``,
-``padded_backward`` in ``ops/attention.py``). Here on the CPU:
+kernels are built for 16, 32, 64, 128 and 256, and every other D up to
+256 runs the next of those on zero-padded inputs (``padded_forward``,
+``padded_backward`` in ``ops/attention.py``; D above 128 is
+tests/test_torch_head_dims_wide.py's). Here on the CPU:
 
 - the port's plain versions (``flash_attention_reference``,
   ``flash_backward_reference``, reached through ``flash_attention`` and
@@ -16,7 +17,7 @@ runs the next of those on zero-padded inputs (``padded_forward``,
   plain ``attention`` and its ``jax.vjp``;
 - the padding itself, with the plain version as the inner function:
   pad -> plain -> slice equals plain at D, forward and backward;
-- ``flash_eligible``: every D up to 128, not 160.
+- ``flash_eligible``: every D up to 256, not 257.
 
 Tolerances: float32 out and lse 1e-5 abs, gradients 1e-4 of each
 gradient's max abs (exact float32 products summed in another order);
@@ -177,17 +178,23 @@ def test_native_head_dims_run_unpadded():
 
 @pytest.mark.parametrize("d,want", [(1, True), (8, True), (16, True),
                                     (24, True), (48, True), (96, True),
-                                    (128, True), (129, False),
-                                    (160, False)])
-def test_flash_eligible_takes_every_head_dim_up_to_128(d, want):
+                                    (128, True), (129, True), (160, True),
+                                    (192, True), (256, True), (257, False),
+                                    (512, False)])
+def test_flash_eligible_takes_every_head_dim_up_to_256(d, want):
     assert tattn.flash_eligible((1, 4, 64, d), (1, 2, 64, d), True) is want
     # causal still needs Tq <= Tk, whatever the head dim
     assert not tattn.flash_eligible((1, 4, 65, d), (1, 2, 64, d), True)
 
 
-def test_head_dim_above_128_raises_before_any_kernel():
-    with pytest.raises(ValueError, match="head dims up to 128, got 160"):
-        tattn.native_head_dim(160)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+def test_head_dim_above_256_raises_before_any_kernel():
+    assert tattn.native_head_dim(160) == tattn.native_head_dim(256) == 256
+    with pytest.raises(ValueError, match="head dims up to 256, got 257"):
+        tattn.native_head_dim(257)
+    with pytest.raises(ValueError, match="head dims up to 256"):
         tattn.padded_forward(tattn.flash_attention_reference,
-                             *(torch.zeros(1, 1, 4, 160),) * 3, True, 1.0, 0)
+                             *(torch.zeros(1, 1, 4, 257),) * 3, True, 1.0, 0)
+    x, lse = torch.zeros(1, 1, 4, 257), torch.zeros(1, 1, 4, 1)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        tattn.padded_backward(tattn.flash_backward_reference, x, x, x, x,
+                              lse, x, None, True, 1.0, 0)

@@ -81,6 +81,20 @@ SMALL_D_CASES = [
     ((1, 8, 2, 256, 256, 96), True, 0, True),
 ]
 
+# head dim 256 (four 64-column boxes; 64-key forward tiles, 32-key dq
+# tiles, 64-key dk/dv items whose D the two warpgroups split; the float32
+# kernels' 64-column chunks): a group of 8 query heads on one kv head (as
+# Gemma-2B's), a ragged window, a full mask with Tq < Tk, a ragged causal
+# Tq < Tk; and 192 and 160, padded to 256
+D256_CASES = [
+    ((1, 8, 1, 256, 256, 256), True, 0, True),
+    ((1, 8, 1, 300, 300, 256), True, 37, False),
+    ((2, 4, 2, 128, 320, 256), False, 0, True),
+    ((1, 4, 1, 70, 333, 256), True, 0, False),
+    ((1, 8, 2, 200, 200, 192), True, 0, True),
+    ((1, 4, 2, 130, 130, 160), False, 0, False),
+]
+
 # what the bf16 backward's design adds: more dk/dv items than SMs (2 * 8
 # kv heads * 4 key tiles * 4 query heads = 256), a group of 8 query heads
 # summed in order and a group of one written directly, a window narrower
@@ -94,7 +108,7 @@ BWD_CASES = CASES + [
     ((1, 4, 2, 256, 256, 128), True, 17, True),
     ((1, 8, 2, 200, 200, 128), True, 0, False),
     ((1, 4, 2, 100, 300, 64), True, 0, True),
-] + D32_CASES + SMALL_D_CASES
+] + D32_CASES + SMALL_D_CASES + D256_CASES
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -131,7 +145,7 @@ def test_backward_kernels_match_plain_version(cuda, dtype, shape, causal,
 FWD_CASES = [case[:3] for case in CASES] + [
     ((1, 8, 2, 17, 17, 128), True, 0),
     ((2, 32, 8, 512, 512, 128), True, 0),
-] + [case[:3] for case in D32_CASES + SMALL_D_CASES]
+] + [case[:3] for case in D32_CASES + SMALL_D_CASES + D256_CASES]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -231,32 +245,66 @@ def test_autograd_launches_the_backward_kernels(cuda):
         assert _rel(g, w) <= REL_TOL[torch.bfloat16]
 
 
-def test_head_dim_outside_the_kernels_raises(cuda):
-    """Above 128 the wrappers raise before any launch, forward and
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [257, 320])
+def test_head_dim_above_256_raises_before_any_launch(cuda, dtype, d):
+    """Above 256 the wrappers raise before any launch, forward and
     backward alike."""
-    q, k, v, do, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 160, 4)
+    q, k, v, do, _ = _inputs(cuda, dtype, 1, 2, 2, 64, 64, d, 4)
     out = torch.zeros_like(q)
     lse = torch.zeros(1, 2, 64, 1, device=cuda)
     before = dict(tattn.LAUNCHES)
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         tattn.flash_backward(q, k, v, out, lse, do)
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         tattn.flash_forward(q, k, v)
     assert tattn.LAUNCHES == before
 
 
-def test_mha_refuses_head_dim_outside_the_kernels(cuda):
+def test_mha_refuses_head_dim_above_256(cuda):
     """On the card mha never drops to plain attention unasked: above
-    128 it raises, and at 8 and 96 (padded) it launches the kernel."""
-    for d in (8, 96):
+    256 it raises, and at 8, 96, 160 (padded) and 256 it launches the
+    kernel."""
+    for d in (8, 96, 160, 256):
         q, k, v, _, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, d, 6)
         before = tattn.LAUNCHES["flash_fwd"]
         assert tattn.mha(q, k, v).shape == q.shape
         assert tattn.LAUNCHES["flash_fwd"] == before + 1
-    q, k, v, _, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 160, 6)
+    q, k, v, _, _ = _inputs(cuda, torch.bfloat16, 1, 2, 2, 64, 64, 257, 6)
+    before = dict(tattn.LAUNCHES)
     with pytest.raises(ValueError, match="flash kernels do not take"):
         tattn.mha(q, k, v)
+    assert tattn.LAUNCHES == before
     assert tattn.mha(q, k, v, use_flash=False).shape == q.shape
+
+
+def test_head_dim_256_work_lists_use_its_tiles(cuda):
+    """At D = 256 the bf16 kernels walk the work lists built with that
+    instance's tiles (flash_tiles): 64-key forward tiles, 32-key dq tiles,
+    64-key dk/dv items, and the dk/dv scratch of a 64-key tile."""
+    tiles = tattn.flash_tiles(256)
+    q, k, v, do, _ = _inputs(cuda, torch.bfloat16, 1, 8, 1, 300, 300, 256,
+                             10)
+    out, lse = tattn.flash_forward(q, k, v, True)
+    got = tattn.flash_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for block_k in (tiles.fwd_k, tiles.dq_k):
+        work, blocks = tattn._forward_work_on(q.device, 8, 300, 300, True, 0,
+                                              block_k)
+        schedule = tattn.flash_forward_schedule(8, 300, 300, True, 0, sms,
+                                                block_k)
+        assert blocks == len(schedule)
+        assert work.tolist() == tattn.flash_work(schedule)
+    work, blocks = tattn._backward_work_on(q.device, 1, 8, 300, 300, True, 0,
+                                           tiles.dkv_k)
+    schedule = tattn.flash_backward_schedule(1, 8, 300, 300, True, 0, sms,
+                                             tiles.dkv_k)
+    assert work.tolist() == tattn.flash_work(schedule)
+    want = tattn.flash_backward_reference(q, k, v, out, lse, do)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= REL_TOL[torch.bfloat16]
 
 
 def test_llama_loss_at_ragged_length_launches_every_kernel(cuda):
@@ -282,6 +330,37 @@ def test_llama_loss_at_ragged_length_launches_every_kernel(cuda):
     torch.cuda.synchronize()
     assert tattn.LAUNCHES == {"flash_fwd": 4, "flash_bwd_dq": 4,
                               "flash_bwd_dkv": 4}
+    want = torch.autograd.grad(llama_loss(model, tokens, use_flash=False),
+                               params)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _rel(g, w) <= 5e-2
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_llama_loss_at_head_dim_256_launches_every_kernel(cuda, dtype):
+    """A Llama at Gemma-2B's attention geometry, cut small (dim 512, 2
+    heads of 256 over one kv head) at T = 256: each layer runs the
+    forward, dq and dk/dv kernels once per step, and the gradients agree
+    with plain attention's (5e-2 of each tensor's max abs)."""
+    from kubeshare_tpu_torch.models.llama import (
+        LlamaConfig, init_llama, llama_loss,
+    )
+
+    cfg = LlamaConfig(vocab=512, dim=512, layers=2, num_heads=2,
+                      num_kv_heads=1, mlp_dim=1024, max_seq_len=512,
+                      rope_theta=10000.0, dtype=dtype)
+    model = init_llama(cfg, device=cuda, trainable=True)
+    params = list(model.parameters())
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (2, 257), generator=gen,
+                           device=cuda)
+    for name in tattn.LAUNCHES:
+        tattn.LAUNCHES[name] = 0
+    got = torch.autograd.grad(llama_loss(model, tokens), params)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES == {"flash_fwd": 2, "flash_bwd_dq": 2,
+                              "flash_bwd_dkv": 2}
     want = torch.autograd.grad(llama_loss(model, tokens, use_flash=False),
                                params)
     for g, w in zip(got, want):
