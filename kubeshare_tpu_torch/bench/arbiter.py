@@ -2,13 +2,13 @@
 benchmarks, and their thread fan-out (copies of ``start_arbiter``,
 ``stop_arbiter``, ``run_threads`` and ``p99`` from ``bench_common.py``).
 
-The arbiter is the native isolation runtime's per-device scheduler
-(``runtime_native/tpu_schd.cc``), a pod manager its per-pod bridge
-(``tpu_pmgr.cc``), which pins the pod's identity on every command it
-forwards: a bench or a pod can then run pod -> ``tpu-pmgr`` ->
-``tpu-schd`` as a node deploys them. A binary that is missing is built
-with ``make -C runtime_native build/<name>`` (g++ only;
-``runtime/native.py::build_binary``). Where ``bench_common.start_arbiter``
+The arbiter is the port's per-device scheduler
+(``runtime/csrc/tpu_schd.cc``), a pod manager the native isolation
+runtime's per-pod bridge (``runtime_native/tpu_pmgr.cc``), which pins
+the pod's identity on every command it forwards: a bench or a pod can
+then run pod -> ``tpu-pmgr`` -> ``tpu-schd`` as a node deploys them.
+Both are built with g++ at first use
+(``runtime/native.py::build_binary``). Where ``bench_common.start_arbiter``
 returns None when the arbiter cannot start, this copy raises: a gated
 benchmark without its arbiter is not the benchmark.
 """
@@ -20,13 +20,23 @@ import socket
 import subprocess
 import threading
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 from ..nodeconfig.files import ConfigEntry, write_config_file
 from ..runtime.client import TokenClient
-from ..runtime.native import NATIVE_BUILD, build_binary
+from ..runtime.native import build_binary
 
-SCHD = str(NATIVE_BUILD / "tpu-schd")
+# a tpu-schd binary to run in place of the port's build (tests)
+SCHD: Optional[str] = None
+
+
+def available() -> bool:
+    """Whether the arbiter can run here: the port's tpu-schd builds."""
+    try:
+        build_binary("tpu-schd")
+    except RuntimeError:
+        return False
+    return True
 
 
 def free_port() -> int:
@@ -47,7 +57,7 @@ def start_arbiter(
 ) -> subprocess.Popen:
     """Spawn a real tpu-schd on ``port`` over a fresh config file and
     return the process once it answers; raise if it does not."""
-    schd = SCHD if os.path.exists(SCHD) else build_binary("tpu-schd")
+    schd = SCHD or build_binary("tpu-schd")
     write_config_file(tmpdir, chip, list(entries))
     proc = subprocess.Popen(
         [schd, "-p", os.path.join(tmpdir, "config"), "-f", chip,

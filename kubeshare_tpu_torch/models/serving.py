@@ -30,14 +30,22 @@ kept on the device and syncs with the host once at the end (the
 reference's one ``lax.scan`` call). It replays the one-step graph
 ``quantum`` times, each step's tokens copied into a [quantum, S]
 buffer, where the reference compiles one program per quantum.
+
+The server records its own spans in ``trace`` (``utils/trace.py``):
+``serve.admit`` around each ``admit`` (field ``tokens``, the prompt's
+length), ``serve.burst`` around each ``step_burst`` (field ``steps``,
+the decode steps run) and ``serve.sync`` around each host wait for the
+device inside them. A parent's time less its ``serve.sync`` children is
+the host's time launching its work.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.trace import SpanLog
 from .graph import Replay, restoring
 from .llama import (
     Llama, _sample_token, cache_slots, init_kv_cache, llama_apply_cached,
@@ -114,6 +122,7 @@ class DecodeServer:
         # host-initiated (admit: true_len; step: +1 per active slot;
         # retire: 0), so stop rules never wait on the device
         self.host_len: List[int] = [0] * slots
+        self.trace = SpanLog()
         # the decode step's fixed inputs, and their host staging
         self._tokens = torch.zeros(slots, dtype=torch.int64,
                                    device=self.device)
@@ -202,6 +211,10 @@ class DecodeServer:
         pool is full or the prompt exceeds the largest bucket
         (``admit_reason`` tells the two apart). An empty prompt raises
         ValueError."""
+        with self.trace.span("serve.admit", tokens=len(prompt)):
+            return self._admit(prompt)
+
+    def _admit(self, prompt: Sequence[int]):
         if not prompt:
             raise ValueError("empty prompt")
         true_len = len(prompt)
@@ -219,8 +232,10 @@ class DecodeServer:
         # rewind the padding: with length = true_len the mask can only
         # see the pad keys after decode has overwritten each of them
         self.cache["length"][slot] = true_len
-        first = int(_sample_token(logits[:, true_len - 1], self.generator,
-                                  self.temperature, self.top_k)[0])
+        with self.trace.span("serve.sync"):
+            first = int(_sample_token(logits[:, true_len - 1],
+                                      self.generator, self.temperature,
+                                      self.top_k)[0])
         self.active[slot] = True
         self.last_tok[slot] = first
         self.generated[slot] = 1
@@ -249,7 +264,8 @@ class DecodeServer:
             return {}
         self._load_inputs()
         self.decode_step()
-        nxt = self._tokens.tolist()
+        with self.trace.span("serve.sync"):
+            nxt = self._tokens.tolist()
         out: Dict[int, int] = {}
         for s in range(self.slots):
             if not self.active[s]:
@@ -274,26 +290,33 @@ class DecodeServer:
         (tokens produced past eos / max_new are discarded). Falls back
         to single steps when an active slot is within ``quantum`` of the
         context horizon."""
-        if quantum <= 1:
-            return {s: [t] for s, t in self.step().items()}
+        with self.trace.span("serve.burst") as span:
+            out, span.fields["steps"] = self._burst(quantum)
+        return out
+
+    def _burst(self, quantum: int) -> Tuple[Dict[int, List[int]], int]:
+        """``step_burst``'s tokens and the decode steps it ran."""
         if not any(self.active):
-            return {}
+            return {}, 0
+        if quantum <= 1:
+            return {s: [t] for s, t in self.step().items()}, 1
         if any(self.host_len[s] + quantum > self.cfg.max_seq_len
                for s in range(self.slots) if self.active[s]):
             out: Dict[int, List[int]] = {}
-            for _ in range(quantum):
+            steps = 0
+            while steps < quantum and any(self.active):
                 for s, t in self.step().items():
                     out.setdefault(s, []).append(t)
-                if not any(self.active):
-                    break
-            return out
+                steps += 1
+            return out, steps
         self._load_inputs()
         seq = torch.empty(quantum, self.slots, dtype=torch.int64,
                           device=self.device)
         for i in range(quantum):
             self.decode_step()
             seq[i].copy_(self._tokens)
-        seq = seq.tolist()  # [quantum, S]: the one host sync
+        with self.trace.span("serve.sync"):
+            seq = seq.tolist()  # [quantum, S]: the one host sync
         out = {}
         for s in range(self.slots):
             if not self.active[s]:
@@ -315,4 +338,4 @@ class DecodeServer:
                 self.retire(s)
             else:
                 self.last_tok[s] = kept[-1]
-        return out
+        return out, quantum

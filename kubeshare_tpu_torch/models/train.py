@@ -7,6 +7,10 @@ parameter tree. In PyTorch the model holds its parameters:
 model in place and returns the loss. ``optax.adam(lr)`` becomes
 ``torch.optim.Adam`` with optax's defaults (betas 0.9 and 0.999,
 eps 1e-8).
+
+The step records each call as a ``train.step`` span in ``step.trace``
+(``utils/trace.py``). The step returns an unsynced loss, so the span is
+the host's time launching the forward, backward and update.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..utils.trace import SpanLog
 from .graph import GraphedStep
 
 
@@ -84,7 +89,8 @@ def make_train_step(loss_fn: Callable, model: nn.Module,
     with ``capturable=True`` (the default one is); its state is created
     before the capture, so the first replay is the first update. The
     loss returned is the graph's output buffer, rewritten by the next
-    step, and ``step.inputs`` are its input buffers."""
+    step, and ``step.inputs`` are its input buffers. Either way
+    ``step.trace`` holds a ``train.step`` span a call."""
     params = [p for p in model.parameters() if p.requires_grad]
     graphed = cuda_graph and params[0].is_cuda
     opt = optimizer or torch.optim.Adam(params, lr=learning_rate,
@@ -103,7 +109,7 @@ def make_train_step(loss_fn: Callable, model: nn.Module,
         return loss
 
     if not graphed:
-        return opt, step
+        return opt, TrainStep(step)
     if not all(group.get("capturable") for group in opt.param_groups):
         raise ValueError("a graphed step needs Adam(capturable=True)")
     init_adam_state(opt)
@@ -112,7 +118,25 @@ def make_train_step(loss_fn: Callable, model: nn.Module,
         # a forward and backward that leave the parameters untouched
         vg(model, batch)
 
-    return opt, GraphedStep(step, warmup)
+    return opt, TrainStep(GraphedStep(step, warmup))
+
+
+class TrainStep:
+    """``step(*batch) -> loss``: ``run(*batch)``, each call recorded as a
+    ``train.step`` span in ``trace``."""
+
+    def __init__(self, run: Callable):
+        self.run = run
+        self.trace = SpanLog()
+
+    def __call__(self, *batch: torch.Tensor) -> torch.Tensor:
+        with self.trace.span("train.step"):
+            return self.run(*batch)
+
+    @property
+    def inputs(self):
+        """A graphed step's input buffers (``GraphedStep.inputs``)."""
+        return self.run.inputs
 
 
 def init_adam_state(opt: torch.optim.Optimizer) -> None:

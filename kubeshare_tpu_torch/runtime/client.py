@@ -34,10 +34,15 @@ class PodStat:
 
 
 class TokenClient:
-    """One TCP connection speaking the ACQ/REL/MEM/STAT line protocol."""
+    """One TCP connection speaking the ACQ/REL/MEM/STAT line protocol.
+
+    ``waited`` is the last grant's ``(waited_ms, throttled_ms)``: how
+    long the arbiter held the ACQ in all, and the part of it the pod was
+    past its limit (``(0.0, 0.0)`` when the reply does not say)."""
 
     def __init__(self, host: str, port: int, pod: str = "", timeout: float = 30.0):
         self.pod = pod or os.environ.get(ENV_POD_NAME, "-") or "-"
+        self.waited: Tuple[float, float] = (0.0, 0.0)
         self._sock = socket.create_connection((host, port), timeout=timeout)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._file = self._sock.makefile("rw", newline="\n")
@@ -61,7 +66,12 @@ class TokenClient:
             self._sock.settimeout(previous)
         if not reply.startswith("TOK "):
             raise TokenProtocolError(f"unexpected ACQ reply {reply!r}")
-        return float(reply.split()[1])
+        # "TOK <quota_ms>" from runtime_native's tpu-schd; the port's
+        # (csrc/tpu_schd.cc) adds "<waited_ms> <throttled_ms>"
+        parts = reply.split()
+        self.waited = ((float(parts[2]), float(parts[3])) if len(parts) >= 4
+                       else (0.0, 0.0))
+        return float(parts[1])
 
     def release(self, used_ms: float) -> None:
         reply = self._roundtrip(f"REL {self.pod} {used_ms:.3f}")

@@ -17,6 +17,12 @@ HBM caps are enforced two ways:
   with ``torch.cuda.set_per_process_memory_fraction`` before the first
   allocation.
 
+The gate records its own spans in ``trace`` (``utils/trace.py``):
+``gate.acquire`` around each ACQ round trip, with the arbiter's
+``waited_ms`` and ``throttled_ms`` (``TokenClient.waited``);
+``gate.hold`` from the grant to the REL reply; ``gate.drain`` around
+each completion barrier.
+
 Usage in a pod (env injected by the scheduler)::
 
     gate = install_gate()          # reads KUBESHARE_* env
@@ -35,6 +41,7 @@ import torch
 
 from ..constants import ENV_HBM_LIMIT, ENV_POD_MANAGER_PORT
 from ..utils.device import honour_visible_chips
+from ..utils.trace import Span, SpanLog
 from .client import TokenClient, TokenProtocolError
 
 
@@ -61,14 +68,37 @@ class SharedChipGate:
         self._hbm_used = 0
         self.tokens_acquired = 0
         self.compute_ms = 0.0
+        self.trace = SpanLog()
         self._held = False
         self._quota_ms = 0.0
-        self._hold_start = 0.0
+        self._hold: Optional[Span] = None
 
     def _drain(self, result: Any) -> Any:
-        if self.drain is not None:
-            return self.drain(result)
-        return _block(result)
+        with self.trace.span("gate.drain"):
+            if self.drain is not None:
+                return self.drain(result)
+            return _block(result)
+
+    def _acquire(self, est_ms: float) -> float:
+        """``client.acquire`` as a ``gate.acquire`` span; returns the
+        quota and opens the ``gate.hold`` span."""
+        with self.trace.span("gate.acquire") as span:
+            quota = self.client.acquire(est_ms)
+            span.fields["waited_ms"], span.fields["throttled_ms"] = getattr(
+                self.client, "waited", (0.0, 0.0))
+        self._hold = self.trace.span("gate.hold").start()
+        return quota
+
+    def _release(self, used_ms: float) -> None:
+        """``client.release``; closes the ``gate.hold`` span at the
+        reply."""
+        try:
+            self.client.release(used_ms)
+        except (TokenProtocolError, OSError):
+            if not self.fail_open:
+                raise
+        finally:
+            self._hold.end()
 
     # ---- compute gating --------------------------------------------
 
@@ -78,7 +108,7 @@ class SharedChipGate:
         acquired = False
         if self.client is not None:
             try:
-                self.client.acquire(est_ms)
+                self._acquire(est_ms)
                 acquired = True
                 self.tokens_acquired += 1
             except (TokenProtocolError, OSError):
@@ -91,11 +121,7 @@ class SharedChipGate:
             used_ms = (time.perf_counter() - start) * 1e3
             self.compute_ms += used_ms
             if acquired:
-                try:
-                    self.client.release(used_ms)
-                except (TokenProtocolError, OSError):
-                    if not self.fail_open:
-                        raise
+                self._release(used_ms)
 
     def wrap(self, fn: Callable, est_ms: float = 0.0) -> Callable:
         """Gate a step function; drains its results inside the token
@@ -123,9 +149,8 @@ class SharedChipGate:
         if self.client is None or self._held:
             return
         try:
-            self._quota_ms = self.client.acquire(est_ms)
+            self._quota_ms = self._acquire(est_ms)
             self._held = True
-            self._hold_start = time.perf_counter()
             self.tokens_acquired += 1
         except (TokenProtocolError, OSError):
             if not self.fail_open:
@@ -133,14 +158,10 @@ class SharedChipGate:
 
     def _release_hold(self, result: Any) -> Any:
         result = self._drain(result)
-        used_ms = (time.perf_counter() - self._hold_start) * 1e3
+        used_ms = (time.perf_counter() - self._hold.t0) * 1e3
         self.compute_ms += used_ms
         self._held = False
-        try:
-            self.client.release(used_ms)
-        except (TokenProtocolError, OSError):
-            if not self.fail_open:
-                raise
+        self._release(used_ms)
         return result
 
     def maybe_release(self, result: Any = None) -> Any:
@@ -148,7 +169,7 @@ class SharedChipGate:
         drain the device and return the token."""
         if self.client is None or not self._held:
             return result
-        elapsed_ms = (time.perf_counter() - self._hold_start) * 1e3
+        elapsed_ms = (time.perf_counter() - self._hold.t0) * 1e3
         if elapsed_ms >= self._quota_ms:
             result = self._release_hold(result)
         return result

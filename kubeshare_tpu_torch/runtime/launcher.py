@@ -6,8 +6,9 @@ starts one ``tpu-schd`` (port = base + the device's index), and keeps
 one ``tpu-pmgr`` per entry of the device's podmanagerport file. File
 changes are found by polling mtimes; a vanished pod's manager is
 SIGKILLed, and a dead child of either kind is restarted. The binaries
-come from ``runtime_native/build/`` (built there with g++ when they are
-missing), else from the node's library directory.
+are built with g++ at first use (``runtime/native.py``: the port's
+``tpu-schd``, ``runtime_native``'s ``tpu-pmgr``), else taken from the
+node's library directory.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ from .native import build_binary
 
 
 def default_binary(name: str) -> str:
-    """``runtime_native/build/<name>``, built first if it is missing;
-    where it cannot be built, the node's installed copy. Raises if
-    neither exists."""
+    """``native.build_binary(name)``, made up to date first; where it
+    cannot be built, the node's installed copy. Raises if neither
+    exists."""
     try:
         return build_binary(name)
     except RuntimeError:

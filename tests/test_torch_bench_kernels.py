@@ -9,7 +9,6 @@ the lines say ``"device": "cpu"``."""
 import dataclasses
 import json
 import math
-import os
 
 import pytest
 
@@ -23,8 +22,8 @@ ATTN = {"batch": 1, "heads": 2, "kv_heads": 1, "head_dim": 32}
 
 @pytest.fixture
 def needs_schd():
-    if not os.path.exists(arbiter.SCHD):
-        pytest.skip("native runtime not built (make -C runtime_native)")
+    if not arbiter.available():
+        pytest.skip("tpu-schd cannot be built here (g++)")
 
 
 def _line(capsys, doc, bench, keys):
