@@ -1,6 +1,8 @@
 // Token arbiter: proportional-share time-slicing of one device. The
-// port's copy of runtime_native/arbiter.h, the same policy, whose
-// acquire also reports how long it blocked and why (TokenArbiter::Wait).
+// port's copy of runtime_native/arbiter.h, whose acquire also reports
+// how long it blocked and why (TokenArbiter::Wait), and whose usage is
+// the part of each hold inside the window: a hold that began before the
+// window's start is charged only its tail.
 //
 // Semantics reproduced from the reference's published contract (the
 // gem-schd CLI surface: -q base_quota=300ms -m min_quota=20ms
@@ -65,12 +67,12 @@ class TokenArbiter {
     double waited = 0.0, throttled = 0.0;
     waiting_.push_back(pod);
     for (;;) {
-      expire_usage(now_ms());
-      const bool under_limit = eligible(pod);
-      if (active_ < slots_ && under_limit && next_in_line(pod)) break;
-      const double before = now_ms();
+      const double now = now_ms();
+      expire_usage(now);
+      const bool under_limit = eligible(pod, now);
+      if (active_ < slots_ && under_limit && next_in_line(pod, now)) break;
       cv_.wait_for(lock, std::chrono::milliseconds(5));
-      const double slept = now_ms() - before;
+      const double slept = now_ms() - now;
       waited += slept;
       if (!under_limit) throttled += slept;
     }
@@ -126,7 +128,7 @@ class TokenArbiter {
     std::vector<Stat> out;
     for (const auto& entry : quotas_) {
       const std::string& pod = entry.first;
-      out.push_back({pod, window_usage(pod),
+      out.push_back({pod, window_usage(pod, now),
                      mem_used_.count(pod) ? mem_used_.at(pod) : 0,
                      entry.second.mem_cap});
     }
@@ -136,6 +138,7 @@ class TokenArbiter {
   double window_ms() const { return window_ms_; }
 
  private:
+  // A released hold: the interval [t_ms - used_ms, t_ms].
   struct Usage {
     double t_ms;        // completion time
     double used_ms;
@@ -157,11 +160,16 @@ class TokenArbiter {
     }
   }
 
-  double window_usage(const std::string& pod) const {
+  // The part of each hold inside the window that ends at `now`: a hold
+  // that began before the window's start is charged only its tail.
+  double window_usage(const std::string& pod, double now) const {
     auto it = usage_.find(pod);
     if (it == usage_.end()) return 0.0;
+    const double start = now - window_ms_;
     double total = 0.0;
-    for (const auto& u : it->second) total += u.used_ms;
+    for (const auto& u : it->second) {
+      total += std::max(0.0, std::min(u.used_ms, u.t_ms - start));
+    }
     return total;
   }
 
@@ -178,21 +186,21 @@ class TokenArbiter {
   }
 
   // A pod past its burst ceiling must wait for the window to slide.
-  bool eligible(const std::string& pod) const {
+  bool eligible(const std::string& pod, double now) const {
     PodQuota q = quota_for(pod);
-    return window_usage(pod) < q.limit * window_ms_;
+    return window_usage(pod, now) < q.limit * window_ms_;
   }
 
   // Grant order: under-served guaranteed pods first (lowest
   // usage/request), then lowest absolute usage among burst pods.
-  bool next_in_line(const std::string& pod) const {
+  bool next_in_line(const std::string& pod, double now) const {
     if (waiting_.empty()) return true;
-    return rank(pod) <= best_waiting_rank(pod);
+    return rank(pod, now) <= best_waiting_rank(pod, now);
   }
 
-  double rank(const std::string& pod) const {
+  double rank(const std::string& pod, double now) const {
     PodQuota q = quota_for(pod);
-    double usage = window_usage(pod);
+    double usage = window_usage(pod, now);
     double guaranteed = q.request * window_ms_;
     if (guaranteed > 0 && usage < guaranteed) {
       return usage / guaranteed - 1.0;  // negative: guaranteed tier
@@ -200,12 +208,12 @@ class TokenArbiter {
     return usage / window_ms_;          // 0..limit: burst tier
   }
 
-  double best_waiting_rank(const std::string& exclude) const {
+  double best_waiting_rank(const std::string& exclude, double now) const {
     double best = 1e18;
     for (const auto& pod : waiting_) {
       if (pod == exclude) continue;
-      if (!eligible(pod)) continue;
-      best = std::min(best, rank(pod));
+      if (!eligible(pod, now)) continue;
+      best = std::min(best, rank(pod, now));
     }
     return best;
   }

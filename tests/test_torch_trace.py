@@ -2,8 +2,9 @@
 (``kubeshare_tpu_torch/utils/trace.py``): the recorder, and the spans of
 ``SharedChipGate``, ``DecodeServer`` and ``make_train_step``'s step, on
 the CPU; and tpu-schd's account of each wait in its ``TOK`` reply
-(``TOK <quota_ms> <waited_ms> <throttled_ms>``), against a live
-``tpu-schd``, the port's, built from ``runtime/csrc/``."""
+(``TOK <quota_ms> <waited_ms> <throttled_ms>``), and its charge for a
+hold (the part of it inside the window), against a live ``tpu-schd``,
+the port's, built from ``runtime/csrc/``."""
 
 import contextlib
 import os
@@ -348,3 +349,75 @@ def test_a_pod_waiting_its_turn_is_not_throttled(schd):
         holder.close()
         waiter.close()
     assert waited > 0.0 and throttled == 0.0
+
+
+# ---- the charge: the part of each hold inside the window ----------------
+
+
+def _held_ms(holds, start, end):
+    """Client-side hold time, in ms, of ``(grant, release)`` intervals
+    (``perf_counter`` seconds) inside ``[start, end]``."""
+    return 1e3 * sum(max(0.0, min(r, end) - max(g, start)) for g, r in holds)
+
+
+def _hold_back_to_back(client, hold_s, run_s):
+    """Acquire, hold for ``hold_s``, release with the hold's true wall
+    time since the grant, again at once, for ``run_s``; returns the
+    holds and each grant's ``client.waited``."""
+    holds, waits = [], []
+    end = time.perf_counter() + run_s
+    while time.perf_counter() < end:
+        client.acquire()
+        granted = time.perf_counter()
+        waits.append(client.waited)
+        time.sleep(hold_s)
+        released = time.perf_counter()
+        client.release(1e3 * (released - granted))
+        holds.append((granted, released))
+    return holds, waits
+
+
+def test_a_hold_that_straddles_the_window_start_is_charged_its_tail(schd):
+    with TokenClient("127.0.0.1", schd, pod="default/b") as client:
+        client.acquire()
+        t0 = time.perf_counter()
+        client.release(150.0)      # the hold [t - 150, t], t its REL
+        t1 = time.perf_counter()
+        time.sleep(0.12)
+        t2 = time.perf_counter()
+        usage = {s.pod: s.window_usage_ms for s in client.stats()}["default/b"]
+        t3 = time.perf_counter()
+    # tpu-schd's STAT came 1e3 * (t2 - t1) to 1e3 * (t3 - t0) ms after
+    # its REL: 150 ms less the part before the window's start, about 80
+    least = max(0.0, min(150.0, WINDOW_MS - 1e3 * (t3 - t0)))
+    most = max(0.0, min(150.0, WINDOW_MS - 1e3 * (t2 - t1)))
+    assert least - 1.0 <= usage <= most + 1.0
+    assert usage < 150.0 - 10.0
+
+
+def test_a_pod_at_limit_one_holding_back_to_back_is_never_throttled(schd):
+    """Holds of 70 ms: charged in full at their end, the last three of
+    a 200 ms window (210 ms) would pass 1.0 x 200 ms."""
+    with TokenClient("127.0.0.1", schd, pod="default/b") as client:
+        holds, waits = _hold_back_to_back(client, 0.07, 3 * WINDOW_MS / 1e3)
+    assert len(holds) >= 6
+    assert [throttled for _, throttled in waits] == [0.0] * len(waits)
+
+
+def test_a_pod_at_limit_half_holding_back_to_back_keeps_to_its_share(schd):
+    """Pod a, limit 0.5 (100 ms of a 200 ms window), holds 20 ms at a
+    time for four windows: it is throttled, and after the first window
+    its hold time over the last window, at each release, is at most the
+    ceiling plus the hold that began under it, and about its share."""
+    with TokenClient("127.0.0.1", schd, pod="default/a") as client:
+        holds, waits = _hold_back_to_back(client, 0.02, 4 * WINDOW_MS / 1e3)
+    assert any(throttled > 0.0 for _, throttled in waits)
+    first = holds[0][0] + WINDOW_MS / 1e3
+    held = []
+    for g, r in holds:
+        if r < first:
+            continue
+        held.append(_held_ms(holds, r - WINDOW_MS / 1e3, r))
+        assert held[-1] <= 0.5 * WINDOW_MS + 1e3 * (r - g) + 1.0
+    assert len(held) >= 4
+    assert sorted(held)[len(held) // 2] >= 0.4 * WINDOW_MS
