@@ -37,14 +37,16 @@ def serve_readings(session, seed, device):
     import torch
 
     from perfbench.lib import check
-    from perfbench.reference import llama_ref
+    from perfbench.reference.common import fp8
 
-    spec, gaps = session.run.spec, {"serve_gap": 0.0, "control_gap": 0.0}
+    run = session.run
+    gaps = {"serve_gap": 0.0, "control_gap": 0.0}
     for pod in sorted({p for p, _ in session.chosen}):
         reqs = [r for p, r in session.chosen if p == pod]
-        ref = check.reference_logits(spec, seed, pod, reqs, device)
-        ctl = check.reference_logits(spec, seed, pod, reqs, device,
-                                     quant=llama_ref.fp8)
+        ref = check.reference_logits(run.family, run.spec, seed, pod, reqs,
+                                     device)
+        ctl = check.reference_logits(run.family, run.spec, seed, pod, reqs,
+                                     device, quant=fp8)
         for r, want, low in zip(reqs, ref, ctl):
             served = torch.tensor(r.tokens, dtype=torch.long, device=device)
             gaps["serve_gap"] = max(gaps["serve_gap"],
@@ -58,21 +60,21 @@ def serve_readings(session, seed, device):
 
 def train_readings(session, seed, device):
     from perfbench.lib import check
-    from perfbench.reference import llama_ref
+    from perfbench.reference.common import fp8
 
     run = session.run
     out = {"program": []}
     for pod in run.pods:
-        ref = check.reference_training(run.spec, run.traffic, seed,
-                                       pod.index, device)
+        ref = check.reference_training(run.family, run.spec, run.traffic,
+                                       seed, pod.index, device)
         out["program"].append(check.train_numbers(
             session.readings[pod.index], ref))
         if pod.index == 0:
-            ctl = check.reference_training(run.spec, run.traffic, seed, 0,
-                                           device, quant=llama_ref.fp8)
+            ctl = check.reference_training(run.family, run.spec, run.traffic,
+                                           seed, 0, device, quant=fp8)
             out["control"] = check.train_numbers(ctl, ref)
             half = check.reference_training(
-                run.spec, run.traffic, seed, 0, device,
+                run.family, run.spec, run.traffic, seed, 0, device,
                 rows_used=run.traffic["rows"] // 2)
             out["half_batch"] = check.train_numbers(half, ref)
     return out
@@ -88,9 +90,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from perfbench.lib import check
     from perfbench.lib.catalog import Catalog
     from perfbench.lib.harness import measure
+    from perfbench.reference.common import exact_float32
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -102,7 +104,7 @@ def main(argv=None) -> int:
         session = measure(catalog, args.workload, seed, args.seconds, False,
                           device, started, log=lambda m: None)
         try:
-            check.llama_ref.exact_float32()
+            exact_float32()
             readings = (serve_readings(session, seed, device)
                         if session.run.kind == "serve"
                         else train_readings(session, seed, device))

@@ -1,7 +1,8 @@
 """Whether what the timed path produced is correct: the program's
-outputs against the plain reference (``perfbench/reference``), which
-draws the same seeded weights and inputs again, once the program's state
-is freed.
+outputs against the plain reference of the configuration's family
+(``families/<family>.py``, over ``perfbench/reference``), which draws
+the same seeded weights and inputs again, once the program's state is
+freed.
 
 Serving: a sample of the requests the pods finished, drawn from the
 seed, the one with the most served tokens always in it. The reference
@@ -29,8 +30,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..reference import llama_ref
-from .spec import ModelSpec
 from .traffic import train_batches
 from . import weights as W
 
@@ -58,16 +57,10 @@ def sample(pods, seed: int, min_tokens: int, max_requests: int) -> List:
     return chosen
 
 
-def reference_logits(spec: ModelSpec, seed: int, pod: int, reqs, device,
+def reference_logits(family, spec, seed: int, pod: int, reqs, device,
                      quant=None) -> List[torch.Tensor]:
     """The reference's float32 logits at every served position of each
     request of pod ``pod`` (prompt + served tokens, teacher-forced)."""
-    dtype = getattr(torch, spec.dtype)
-
-    def layer(i):
-        return {k: v.float() for k, v in
-                W.block(spec, seed, pod, i, dtype, device).items()}
-
     seqs, positions = [], []
     for r in reqs:
         ids = r.prompt + r.tokens[:-1]
@@ -75,11 +68,8 @@ def reference_logits(spec: ModelSpec, seed: int, pod: int, reqs, device,
         first = len(r.prompt) - 1
         positions.append(torch.arange(first, first + len(r.tokens),
                                       device=device))
-    return llama_ref.logits_at(
-        spec, W.embedding(spec, seed, pod, dtype, device).float(), layer,
-        W.final_norm(spec, device), W.head(spec, seed, pod, dtype,
-                                           device).float(),
-        seqs, positions, quant)
+    return family.reference_logits(spec, seed, pod, seqs, positions, device,
+                                   quant)
 
 
 def widest_gap(ref: torch.Tensor, tokens: torch.Tensor) -> float:
@@ -89,59 +79,47 @@ def widest_gap(ref: torch.Tensor, tokens: torch.Tensor) -> float:
     return (best - got).max().item()
 
 
-def serve_numbers(spec: ModelSpec, seed: int, chosen, device) -> Dict:
+def serve_numbers(family, spec, seed: int, chosen, device) -> Dict:
     gap, tokens = 0.0, 0
     for pod in sorted({p for p, _ in chosen}):
         reqs = [r for p, r in chosen if p == pod]
-        for r, ref in zip(reqs, reference_logits(spec, seed, pod, reqs,
-                                                 device)):
+        for r, ref in zip(reqs, reference_logits(family, spec, seed, pod,
+                                                 reqs, device)):
             served = torch.tensor(r.tokens, dtype=torch.long, device=device)
             gap = max(gap, widest_gap(ref, served))
             tokens += len(r.tokens)
     return {"serve_gap": gap, "_requests": len(chosen), "_tokens": tokens}
 
 
-def initial_leaves(spec: ModelSpec, seed: int, pod: int, device):
-    """(name, tensor) of a trainer's initial float32 leaves, part by part."""
-    f32 = torch.float32
-    yield "embed", W.embedding(spec, seed, pod, f32, device)
-    for i in range(spec.layers):
-        for name, t in W.block(spec, seed, pod, i, f32, device).items():
-            yield f"layers.{i}.{name}", t
-    yield "final_norm", W.final_norm(spec, device)
-    yield "head", W.head(spec, seed, pod, f32, device)
-
-
-def change_norms(spec: ModelSpec, seed: int, pod: int,
+def change_norms(family, spec, seed: int, pod: int,
                  leaves: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """||leaf - its initial value|| by leaf name."""
     device = next(iter(leaves.values())).device
     with torch.no_grad():
         return {n: (leaves[n].float() - t0).norm().item()
-                for n, t0 in initial_leaves(spec, seed, pod, device)}
+                for n, t0 in family.initial_leaves(spec, seed, pod, device)}
 
 
 def program_first_grads(pod) -> Dict[str, float]:
     """The first gradient's norm by leaf, from the program's Adam state
     after one step: exp_avg = (1 - beta1) g."""
     out = {}
-    for n, p in pod.model.named_parameters():
+    for n, p in pod.leaves().items():
         avg = pod.optimizer.state.get(p, {}).get("exp_avg")
-        out["head" if n == "lm_head" else n] = (
-            0.0 if avg is None else (avg.norm() / (1 - ADAM_BETA1)).item())
+        out[n] = 0.0 if avg is None else (avg.norm() / (1 - ADAM_BETA1)).item()
     return out
 
 
-def reference_training(spec: ModelSpec, traffic: Dict, seed: int, pod: int,
+def reference_training(family, spec, traffic: Dict, seed: int, pod: int,
                        device, quant=None, rows_used: int = 0) -> Dict:
     """The reference's readings for pod ``pod``: its losses, first
     gradient norms and change norms over ``CHECK_STEPS`` steps."""
-    params = dict(initial_leaves(spec, seed, pod, device))
+    params = dict(family.initial_leaves(spec, seed, pod, device))
     batches = train_batches(traffic, seed, pod, device)
     rows = [next(batches) for _ in range(CHECK_STEPS)]
-    out = llama_ref.adam_train(spec, params, rows, float(traffic["lr"]),
-                               quant=quant, rows_used=rows_used)
-    out["change"] = change_norms(spec, seed, pod, params)
+    out = family.reference_training(spec, params, rows, float(traffic["lr"]),
+                                    quant=quant, rows_used=rows_used)
+    out["change"] = change_norms(family, spec, seed, pod, params)
     return out
 
 

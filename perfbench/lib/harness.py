@@ -23,23 +23,27 @@ import math
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from types import ModuleType
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from . import check, trace as T
 from .catalog import Catalog
 from .pods import POD_KINDS, Arbiter, Pause
-from .spec import ModelSpec
+from ..reference.common import exact_float32
 
 
 @dataclass
 class Run:
     """What a metric's reader reads. Times are ``time.perf_counter()``
-    seconds; ``window`` is the measured window (w0, w1)."""
+    seconds; ``window`` is the measured window (w0, w1). ``family`` is
+    the configuration's model family (``families/<family>.py``) and
+    ``spec`` the model as it describes it."""
     workload: str
     kind: str
-    spec: ModelSpec
+    family: ModuleType
+    spec: Any
     traffic: Dict
     seconds: float
     setup_s: float
@@ -71,7 +75,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def train_setup(pods, spec: ModelSpec, seed: int) -> Dict[int, Dict]:
+def train_setup(pods, family, spec, seed: int) -> Dict[int, Dict]:
     """The first ``CHECK_STEPS`` steps of every pod through its own gated
     step, all pods at once, each in a thread of its own as the window
     drives them; the program's readings for the check, by pod."""
@@ -84,7 +88,7 @@ def train_setup(pods, spec: ModelSpec, seed: int) -> Dict[int, Dict]:
             losses.append(pod.one_step())
         readings[pod.index] = {
             "losses": losses, "first_grad": first_grad,
-            "change": check.change_norms(spec, seed, pod.index,
+            "change": check.change_norms(family, spec, seed, pod.index,
                                          pod.leaves())}
 
     threads, errors = _threads([(lambda p=p: first_steps(p)) for p in pods])
@@ -163,6 +167,7 @@ def measure(catalog: Catalog, workload: str, seed: int, seconds: float,
     """Set-up, the window and the metrics; the program's state is freed
     at the end. The caller closes the session."""
     cell = catalog.cell(workload)
+    family = catalog.family(cell["config"])
     spec = catalog.spec(cell["config"])
     traffic = catalog.traffic(cell["traffic"])
     limits = catalog.limits(workload)
@@ -173,7 +178,8 @@ def measure(catalog: Catalog, workload: str, seed: int, seconds: float,
     try:
         for i, name in enumerate(names):
             pods.append(POD_KINDS[kind](i, name, arbiter.gate(name), device,
-                                        spec, traffic, seed, seconds, trace))
+                                        family, spec, traffic, seed, seconds,
+                                        trace))
         if kind == "serve" and (traffic["prompt_tokens"]["max"]
                                 > pods[0].server.buckets[-1]):
             raise ValueError("prompts longer than the largest bucket the "
@@ -183,7 +189,7 @@ def measure(catalog: Catalog, workload: str, seed: int, seconds: float,
             for pod in pods:
                 pod.warm_up()
         else:
-            readings = train_setup(pods, spec, seed)
+            readings = train_setup(pods, family, spec, seed)
         if trace:
             warm_profiler(device)
         _sync(device)
@@ -217,8 +223,9 @@ def measure(catalog: Catalog, workload: str, seed: int, seconds: float,
         _sync(device)
         peak = (torch.cuda.max_memory_allocated(device)
                 if device.type == "cuda" else 0)
-        run = Run(workload, kind, spec, traffic, seconds, setup_s, (w0, w1),
-                  pods, T.read(prof, perf0) if prof is not None else None)
+        run = Run(workload, kind, family, spec, traffic, seconds, setup_s,
+                  (w0, w1), pods,
+                  T.read(prof, perf0) if prof is not None else None)
         metrics = {}
         for m in catalog.metrics(workload, trace):
             value = catalog.reader(m["name"])(run)
@@ -248,14 +255,15 @@ def compare(session: Session, seed: int, device) -> Dict:
     """The compared numbers of a session (``check``), from the reference
     run now that the program's state is freed."""
     run = session.run
-    check.llama_ref.exact_float32()
+    exact_float32()
     if run.kind == "serve":
         if not session.chosen:
             return {}
-        return check.serve_numbers(run.spec, seed, session.chosen, device)
+        return check.serve_numbers(run.family, run.spec, seed, session.chosen,
+                                   device)
     per_pod = [check.train_numbers(
         session.readings[pod.index], check.reference_training(
-            run.spec, run.traffic, seed, pod.index, device))
+            run.family, run.spec, run.traffic, seed, pod.index, device))
         for pod in run.pods]
     numbers = {k: max(n[k] for n in per_pod) for k in session.limits}
     numbers["_pods"] = per_pod

@@ -29,17 +29,17 @@ from typing import Dict, List
 
 import torch
 
-from .spec import ModelSpec
 from .traffic import Request, requests, train_batches, horizon
 from . import weights as W
 
 
 def _program():
-    """The program's modules, imported when a run starts."""
-    from kubeshare_tpu_torch.models import llama, serving, train
+    """The program's modules, imported when a run starts. The model is
+    the family's (``families/<family>.py``)."""
+    from kubeshare_tpu_torch.models import serving, train
     from kubeshare_tpu_torch.nodeconfig import files
     from kubeshare_tpu_torch.runtime import client, hook, native
-    return llama, serving, train, files, client, hook, native
+    return serving, train, files, client, hook, native
 
 
 class Arbiter:
@@ -90,27 +90,6 @@ class Arbiter:
             self.proc.kill()
         self.proc.wait()
         self._dir.cleanup()
-
-
-def build_model(spec: ModelSpec, seed: int, pod: int, device,
-                trainable: bool):
-    """The program's ``Llama`` over the benchmark's seeded weights:
-    float32 master weights for training, the configuration's dtype for
-    serving."""
-    llama = _program()[0]
-    cfg = llama.LlamaConfig(
-        vocab=spec.vocab, dim=spec.dim, layers=spec.layers,
-        num_heads=spec.heads, num_kv_heads=spec.kv_heads, mlp_dim=spec.ff,
-        max_seq_len=spec.max_positions, rope_theta=spec.rope_theta,
-        dtype=spec.dtype, window=spec.window)
-    dtype = torch.float32 if trainable else getattr(torch, spec.dtype)
-    blocks = [llama.LlamaBlock(trainable=trainable,
-                               **W.block(spec, seed, pod, i, dtype, device))
-              for i in range(spec.layers)]
-    return llama.Llama(cfg, W.embedding(spec, seed, pod, dtype, device),
-                       blocks, W.final_norm(spec, device),
-                       W.head(spec, seed, pod, dtype, device),
-                       trainable=trainable)
 
 
 class Pause:
@@ -194,11 +173,12 @@ class Pod:
 class ServePod(Pod):
     kind = "serve"
 
-    def __init__(self, index, name, gate, device, spec: ModelSpec,
+    def __init__(self, index, name, gate, device, family, spec,
                  traffic: Dict, seed: int, seconds: float, mark: bool):
         super().__init__(index, name, gate, device, mark)
-        serving = _program()[1]
-        self.model = build_model(spec, seed, index, device, trainable=False)
+        serving = _program()[0]
+        self.model = family.build(spec, seed, index, device,
+                                  trainable=False)
         srv = traffic["server"]
         self.quantum = int(srv["quantum"])
         self.server = serving.DecodeServer(
@@ -285,13 +265,14 @@ class ServePod(Pod):
 class TrainPod(Pod):
     kind = "train"
 
-    def __init__(self, index, name, gate, device, spec: ModelSpec,
+    def __init__(self, index, name, gate, device, family, spec,
                  traffic: Dict, seed: int, seconds: float, mark: bool):
         super().__init__(index, name, gate, device, mark)
-        llama, _, train, *_ = _program()
-        self.model = build_model(spec, seed, index, device, trainable=True)
+        train = _program()[1]
+        self.family = family
+        self.model = family.build(spec, seed, index, device, trainable=True)
         self.optimizer, self.step = train.make_train_step(
-            llama.llama_loss, self.model, learning_rate=float(traffic["lr"]))
+            family.loss(), self.model, learning_rate=float(traffic["lr"]))
         self.batches = train_batches(traffic, seed, index, device)
         self.losses: List[float] = []
 
@@ -318,8 +299,7 @@ class TrainPod(Pod):
 
     def leaves(self) -> Dict[str, torch.Tensor]:
         """The trained leaves by the reference's names."""
-        return {("head" if n == "lm_head" else n): p
-                for n, p in self.model.named_parameters()}
+        return self.family.program_leaves(self.model)
 
     def free(self) -> None:
         self.model = self.optimizer = self.step = self.batches = None

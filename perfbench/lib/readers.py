@@ -48,17 +48,19 @@ def device_idle(run, kind: str) -> Optional[float]:
 
 def flash_roofline(run, fragment: str, kind: str) -> Optional[float]:
     """Least time over device time of every call of the kernel whose
-    name holds ``fragment`` in the traced slice, counted at the model's
-    head dim and the trainer's shape (causal, the model's window)."""
+    name holds ``fragment`` in the traced slice. A call's least time is
+    the mean over the flash calls of one training forward at the
+    trainer's shape, as the family lists them (``attention_calls``: each
+    layer's shape at the model's head dim, and its window)."""
     if run.kind != "train" or run.trace is None:
         return None
     calls = run.trace.kernels(fragment)
     if not calls:
         return None
-    s, t = run.spec, run.traffic
-    shape = (t["rows"], s.heads, s.kv_heads, t["seq_len"], t["seq_len"],
-             s.head_dim)
-    least = roofline.flash_bound_s(shape, s.dtype, True, s.window, kind)
+    t = run.traffic
+    planned = run.family.attention_calls(run.spec, t["rows"], t["seq_len"])
+    least = math.fsum(roofline.flash_bound_s(*call, kind)
+                      for call in planned) / len(planned)
     return 100.0 * len(calls) * least / sum(d.end - d.start for d in calls)
 
 

@@ -1,5 +1,6 @@
-"""The yardstick's arithmetic: the H100's peaks, the flash kernels'
-least time, and a model's operations a token.
+"""The yardstick's arithmetic: the H100's peaks and the flash kernels'
+least time. A model's operations are its family's to count
+(``families/<family>.py``: ``forward_flops``, ``attention_calls``).
 
 Frozen copies (later PRs may not move them):
 - ``visible_pairs``, ``FLASH_WORK`` and ``flash_bound_s`` from
@@ -12,8 +13,6 @@ Frozen copies (later PRs may not move them):
 """
 
 from __future__ import annotations
-
-from .spec import ModelSpec
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -56,22 +55,3 @@ def flash_bound_s(shape, dtype_name: str, causal: bool, window: int,
     ops = per_pair * batch * heads * head_dim * visible_pairs(
         t_q, t_k, causal, window)
     return max(n_bytes / PEAK_BYTES, ops / PEAK_FLOPS[dtype_name])
-
-
-def attention_flops(spec: ModelSpec, first: int, count: int) -> float:
-    """Forward operations of attention for ``count`` positions starting
-    at absolute position ``first`` of one sequence, every layer: Q K^T
-    and P V, 2 operations each per visible (query, key) pair and head
-    dim."""
-    keys = 0
-    for p in range(first, first + count):
-        keys += min(p + 1, spec.window) if spec.window > 0 else p + 1
-    return 4.0 * spec.layers * spec.heads * spec.head_dim * keys
-
-
-def forward_flops(spec: ModelSpec, first: int, count: int) -> float:
-    """A forward pass's operations for ``count`` tokens of one sequence
-    at positions first .. first + count - 1: 2 per token and parameter
-    of the products, and the attention over the live context."""
-    return 2.0 * spec.matmul_params() * count + attention_flops(
-        spec, first, count)

@@ -1,16 +1,16 @@
 """mfu.serve: the operations of every prompt token admitted and every
-token decoded and delivered in the traced slice (2 per parameter of the
-products and token, and attention over the live context) over the slice
-x 989 TFLOP/s."""
+token decoded and delivered in the traced slice, as the configuration's
+family counts them (``forward_flops``; the dense family: 2 per parameter
+of the products and token, and attention over the live context), over
+the slice x 989 TFLOP/s."""
 
 from perfbench.lib.readers import mfu, traced_flops
-from perfbench.lib.roofline import forward_flops
 
 
 def read(run):
     if run.kind != "serve" or run.trace is None:
         return None
-    spec = run.spec
+    spec, forward_flops = run.spec, run.family.forward_flops
     prefill = traced_flops(run, "admit",
                            lambda span: forward_flops(spec, 0, span[2]))
     decode = traced_flops(run, "decode", lambda span: sum(

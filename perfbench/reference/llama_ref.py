@@ -1,8 +1,10 @@
-"""The plain reference of the benchmark's models: a decoder-only
-transformer as its configuration file describes it, in float32 with
-plain ``torch`` operations (TF32 off), one sequence at a time, no cache,
-no kernels, no batching. It imports only ``torch`` and the benchmark's
-own ``lib/spec.py``; nothing of the program under test.
+"""The plain reference of the dense family (``families/dense.py``): a
+decoder-only transformer as its configuration file describes it, in
+float32 with plain ``torch`` operations (TF32 off), one sequence at a
+time, no cache, no kernels, no batching. It imports only ``torch``;
+nothing of the program under test. Another family brings its own
+reference beside this one; what they share (exact float32, the
+control's rounding) is in ``reference/common.py``.
 
 The block (pre-norm): RMSNorm -> q, k, v projections -> rotary
 embedding (half-split, ``rope_theta``; angles in float64) ->
@@ -14,10 +16,11 @@ residual. Final RMSNorm, an untied head, softmax cross entropy for the
 next-token loss. Adam as ``torch.optim.Adam`` computes it (betas 0.9 and
 0.999, eps 1e-8, no weight decay).
 
-``quant`` (the control): a function applied to both operands of every
-product, the attention's included, along their contraction axis.
-``fp8`` is the float8 (e4m3) rounding with a scale per row, the
-precision one step below the configurations' bfloat16.
+``spec`` is the dense family's ``ModelSpec``. ``quant`` (the control): a
+function applied to both operands of every product, the attention's
+included, along their contraction axis; ``common.fp8`` is the float8
+(e4m3) rounding with a scale per row, the precision one step below the
+configurations' bfloat16.
 """
 
 from __future__ import annotations
@@ -28,28 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..lib.spec import ModelSpec
-
 Quant = Optional[Callable[[torch.Tensor, int], torch.Tensor]]
-
-FP8_MAX = 448.0
-
-
-def exact_float32() -> None:
-    """float32 products in float32: no TF32 anywhere."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
-def fp8(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``x`` rounded to float8 e4m3 with one scale per slice along
-    ``dim`` (its absolute max maps to 448), back in float32. Under
-    autograd the rounding passes the gradient straight through."""
-    with torch.no_grad():
-        scale = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-30) / FP8_MAX
-        rounded = (x / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
-    return x + (rounded - x).detach() if x.requires_grad else rounded
 
 
 def _q(quant: Quant, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -93,7 +75,7 @@ def attend(q, k, v, window: int, quant: Quant = None):
     return _q(quant, probs, -1) @ _q(quant, v, -2)
 
 
-def block(spec: ModelSpec, w: Dict[str, torch.Tensor], x: torch.Tensor,
+def block(spec, w: Dict[str, torch.Tensor], x: torch.Tensor,
           quant: Quant = None) -> torch.Tensor:
     """One block on one sequence's hidden states x [T, dim]."""
     t = x.shape[0]
@@ -112,7 +94,7 @@ def block(spec: ModelSpec, w: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 @torch.no_grad()
-def logits_at(spec: ModelSpec, embed: torch.Tensor,
+def logits_at(spec, embed: torch.Tensor,
               layer_weights: Callable[[int], Dict[str, torch.Tensor]],
               final_norm: torch.Tensor, head: torch.Tensor,
               sequences: Sequence[torch.Tensor],
@@ -130,7 +112,7 @@ def logits_at(spec: ModelSpec, embed: torch.Tensor,
             for x, p in zip(xs, positions)]
 
 
-def sequence_loss(spec: ModelSpec, params: Dict[str, torch.Tensor],
+def sequence_loss(spec, params: Dict[str, torch.Tensor],
                   row: torch.Tensor, quant: Quant = None) -> torch.Tensor:
     """Mean next-token loss of one row of T + 1 token ids. ``params``:
     ``embed``, ``head``, ``final_norm`` and ``layers.<i>.<name>``."""
@@ -145,7 +127,7 @@ def sequence_loss(spec: ModelSpec, params: Dict[str, torch.Tensor],
     return F.cross_entropy(logits, row[1:])
 
 
-def adam_train(spec: ModelSpec, params: Dict[str, torch.Tensor],
+def adam_train(spec, params: Dict[str, torch.Tensor],
                batches: Sequence[torch.Tensor], lr: float,
                quant: Quant = None, rows_used: int = 0) -> Dict:
     """Adam over ``batches`` ([rows, T + 1] each), one row's forward and

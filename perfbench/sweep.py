@@ -53,6 +53,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     catalog = Catalog(REPO / "BENCHMARK.json")
     cell = catalog.cell(args.workload)
+    family = catalog.family(cell["config"])
     spec = catalog.spec(cell["config"])
     base = catalog.traffic(cell["traffic"])
     names = [f"{args.workload}/pod-{i}" for i in range(int(base["pods"]))]
@@ -60,8 +61,8 @@ def main(argv=None) -> int:
     pods = []
     try:
         for i, name in enumerate(names):
-            pods.append(ServePod(i, name, arbiter.gate(name), device, spec,
-                                 base, args.seed, args.seconds, False))
+            pods.append(ServePod(i, name, arbiter.gate(name), device, family,
+                                 spec, base, args.seed, args.seconds, False))
         for pod in pods:
             pod.warm_up()
         torch.cuda.synchronize()

@@ -50,6 +50,103 @@ def test_added_files_are_found_without_an_edit(tmp_path):
     result, _ = tiny.run(bench_path, "tiny.serve", trace=True, seconds=0.6)
     assert result["metrics"]["requests_due"]["value"] == result["attempted"]
 
+# A second model family, added as a file: the dense decoder read from a
+# configuration in GPT-2's keys, with its own count of operations (the
+# embedding counted as a product).
+FAMILY = '''"""The dense decoder, its configuration in GPT-2's keys."""
+
+from perfbench.families import dense
+
+build, loss, program_leaves = dense.build, dense.loss, dense.program_leaves
+initial_leaves, attention_calls = dense.initial_leaves, dense.attention_calls
+reference_logits = dense.reference_logits
+reference_training = dense.reference_training
+
+
+def spec(name, cfg):
+    return dense.ModelSpec(
+        name=name, vocab=cfg["vocab_size"], dim=cfg["n_embd"],
+        layers=cfg["n_layer"], heads=cfg["n_head"], kv_heads=cfg["n_head_kv"],
+        head_dim=cfg["n_embd"] // cfg["n_head"], ff=cfg["n_inner"],
+        rope_theta=cfg["rotary_base"], window=cfg["attention_window"],
+        eps=cfg["layer_norm_epsilon"], dtype=cfg["dtype"],
+        max_positions=cfg["n_positions"])
+
+
+def forward_flops(spec, first, count):
+    embedded = 2.0 * spec.vocab * spec.dim * count
+    return embedded + dense.forward_flops(spec, first, count)
+'''
+GPT_KEYS = {"family": "gpt_keys", "n_embd": 64, "n_layer": 2, "n_head": 4,
+            "n_head_kv": 2, "n_inner": 96, "vocab_size": 128,
+            "rotary_base": 10000.0, "attention_window": 40,
+            "layer_norm_epsilon": 1e-6, "dtype": "bfloat16",
+            "n_positions": 256}
+
+
+def test_a_family_added_as_a_file_runs_serve_and_train_cells(tmp_path):
+    import time
+
+    import torch
+
+    from perfbench.families import dense
+    from perfbench.lib.harness import compare, measure
+    from perfbench.lib.check import verdict
+    from perfbench.lib.readers import mfu, traced_flops
+
+    bench_path = tiny.checkout(tmp_path)
+    home = tmp_path / "perfbench"
+    before = snapshot(home)
+    (home / "families" / "gpt_keys.py").write_text(FAMILY)
+    (home / "configs" / "tiny-gpt.json").write_text(json.dumps(GPT_KEYS))
+    cells = {"tiny-gpt.serve": "tiny-serve", "tiny-gpt.train": "tiny-train"}
+    bench = json.loads(bench_path.read_text())
+    bench["configs"].append({"name": "tiny-gpt", "source": "test",
+                             "file": "perfbench/configs/tiny-gpt.json",
+                             "reduced": [], "why": "test"})
+    for cell, traffic in cells.items():
+        twin = cell.replace("tiny-gpt", "tiny")
+        (home / "limits" / f"{cell}.json").write_text(
+            json.dumps(tiny.LIMITS[twin]))
+        bench["workloads"].append({"name": cell, "config": "tiny-gpt",
+                                   "traffic": traffic, "chips": 1,
+                                   "why": "test"})
+        for metric in bench["end_to_end"] + bench["per_layer"]:
+            if twin in metric.get("workloads", []):
+                metric["workloads"].append(cell)
+    bench_path.write_text(json.dumps(bench))
+    after = snapshot(home)
+    assert [p for p in before if before[p] != after.get(p)] == []
+
+    catalog = Catalog(bench_path)
+    spec = catalog.spec("tiny-gpt")
+    assert spec == dense.spec("tiny-gpt", tiny.TINY)
+    cpu = torch.device("cpu")
+    for cell in cells:
+        session = measure(catalog, cell, 5, 0.8, True, cpu,
+                          time.perf_counter(), log=lambda msg: None)
+        try:
+            numbers = compare(session, 5, cpu)
+        finally:
+            session.close()
+        run = session.run
+        assert run.family.__file__ == str(home / "families" / "gpt_keys.py")
+        assert verdict(numbers, session.limits), numbers
+        assert session.attempted > 0
+        if run.kind == "train":
+            rows, t = run.traffic["rows"], run.traffic["seq_len"]
+
+            def read(count):
+                return mfu(traced_flops(run, "train_step",
+                                        lambda span: 3.0 * rows * count), run)
+
+            own = run.family.forward_flops(spec, 0, t)
+            assert own > dense.forward_flops(spec, 0, t)
+            assert session.metrics["mfu.train"]["value"] == read(own)
+        else:
+            assert session.metrics["mfu.serve"]["value"] > 0
+
+
 def test_each_cell_reports_setup_another_end_to_end_and_a_layer_metric():
     catalog = Catalog(REPO / "BENCHMARK.json")
     for cell in BENCH["workloads"]:

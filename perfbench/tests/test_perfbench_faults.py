@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from perfbench.lib import check
-from perfbench.reference import llama_ref
+from perfbench.reference.common import exact_float32, fp8
 from perfbench.tests import tiny
 
 
@@ -87,12 +87,14 @@ def test_the_float8_control_fails_the_limits(bench):
     from perfbench.lib.catalog import Catalog
 
     catalog = Catalog(bench)
+    family = catalog.family("tiny-train")
     spec = catalog.spec("tiny-train")
     traffic = catalog.traffic("tiny-train")
-    llama_ref.exact_float32()
-    ref = check.reference_training(spec, traffic, 3, 0, torch.device("cpu"))
-    ctl = check.reference_training(spec, traffic, 3, 0, torch.device("cpu"),
-                                   quant=llama_ref.fp8)
+    exact_float32()
+    cpu = torch.device("cpu")
+    ref = check.reference_training(family, spec, traffic, 3, 0, cpu)
+    ctl = check.reference_training(family, spec, traffic, 3, 0, cpu,
+                                   quant=fp8)
     numbers = check.train_numbers(ctl, ref)
     assert not check.verdict(numbers, tiny.LIMITS["tiny.train"]), numbers
 
@@ -109,7 +111,7 @@ def test_the_float8_control_fails_the_serving_limit(bench):
         session = measure(Catalog(bench), "tiny.serve", seed, 0.8, False,
                           cpu, time.perf_counter(), log=lambda m: None)
         try:
-            llama_ref.exact_float32()
+            exact_float32()
             readings = control.serve_readings(session, seed, cpu)
         finally:
             session.close()

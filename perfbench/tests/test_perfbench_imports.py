@@ -1,7 +1,8 @@
 """Nothing the benchmark runs loads ``jax``, ``jaxlib``, ``flax`` or the
 JAX package ``kubeshare_tpu`` (top-level names compared whole: the port
-``kubeshare_tpu_torch`` begins with it), and the reference loads nothing
-of the port either."""
+``kubeshare_tpu_torch`` begins with it), and the reference, and a
+family's module until it builds the program's model, load nothing of
+the port either."""
 
 import subprocess
 import sys
@@ -34,7 +35,9 @@ def test_a_whole_tiny_run_loads_no_jax(tmp_path):
 
 def test_the_reference_loads_nothing_of_the_program():
     names = loaded_after("import perfbench.reference.llama_ref\n"
-                         "import perfbench.lib.weights, perfbench.lib.spec")
+                         "import perfbench.reference.common\n"
+                         "import perfbench.lib.weights\n"
+                         "import perfbench.families.dense")
     assert not names & set(FORBIDDEN + ("kubeshare_tpu_torch",))
 
 

@@ -5,14 +5,13 @@ training loss, its gradients and three Adam steps."""
 
 import torch
 
-from perfbench.lib import check, weights as W
-from perfbench.lib.pods import build_model
-from perfbench.lib.spec import from_config
-from perfbench.reference import llama_ref
+from perfbench.families import dense
+from perfbench.lib import check
+from perfbench.reference import common, llama_ref
 from perfbench.tests import tiny
 
-SPEC = from_config("tiny", dict(tiny.TINY, torch_dtype="float32",
-                                sliding_window=12))
+SPEC = dense.spec("tiny", dict(tiny.TINY, torch_dtype="float32",
+                               sliding_window=12))
 CPU = torch.device("cpu")
 
 
@@ -20,7 +19,7 @@ def test_served_logits_match_the_cached_path():
     from kubeshare_tpu_torch.models.llama import (init_kv_cache,
                                                   llama_apply_cached)
 
-    model = build_model(SPEC, 11, 0, CPU, trainable=False)
+    model = dense.build(SPEC, 11, 0, CPU, trainable=False)
     ids = torch.randint(2, SPEC.vocab, (1, 20), generator=torch.Generator()
                         .manual_seed(3))
     cache = init_kv_cache(model.cfg, 1, device=CPU)
@@ -32,11 +31,12 @@ def test_served_logits_match_the_cached_path():
     program = torch.cat(rows)
 
     def layer(i):
-        return W.block(SPEC, 11, 0, i, torch.float32, CPU)
+        return dense.block(SPEC, 11, 0, i, torch.float32, CPU)
 
     want = llama_ref.logits_at(
-        SPEC, W.embedding(SPEC, 11, 0, torch.float32, CPU), layer,
-        W.final_norm(SPEC, CPU), W.head(SPEC, 11, 0, torch.float32, CPU),
+        SPEC, dense.embedding(SPEC, 11, 0, torch.float32, CPU), layer,
+        dense.final_norm(SPEC, CPU),
+        dense.head(SPEC, 11, 0, torch.float32, CPU),
         [ids[0]], [torch.arange(20)])[0]
     assert torch.allclose(program, want, atol=2e-4, rtol=1e-4)
 
@@ -46,7 +46,7 @@ def test_training_matches_the_train_step():
     from kubeshare_tpu_torch.models.train import make_train_step
 
     traffic = dict(tiny.TRAIN, seq_len=20)
-    model = build_model(SPEC, 5, 1, CPU, trainable=True)
+    model = dense.build(SPEC, 5, 1, CPU, trainable=True)
     opt, step = make_train_step(llama_loss, model,
                                 learning_rate=traffic["lr"])
     batches = check.train_batches(traffic, 5, 1, CPU)
@@ -56,14 +56,14 @@ def test_training_matches_the_train_step():
         pass
 
     pod = Pod()
-    pod.model, pod.optimizer = model, opt
+    pod.optimizer = opt
+    pod.leaves = lambda: dense.program_leaves(model)
     first = check.program_first_grads(pod)
     losses += [step(next(batches)).item() for _ in range(2)]
-    leaves = {("head" if n == "lm_head" else n): p
-              for n, p in model.named_parameters()}
     program = {"losses": losses, "first_grad": first,
-               "change": check.change_norms(SPEC, 5, 1, leaves)}
-    ref = check.reference_training(SPEC, traffic, 5, 1, CPU)
+               "change": check.change_norms(dense, SPEC, 5, 1,
+                                            pod.leaves())}
+    ref = check.reference_training(dense, SPEC, traffic, 5, 1, CPU)
     numbers = check.train_numbers(program, ref)
     assert numbers["loss_gap"] < 1e-5
     assert numbers["grad_gap"] < 1e-4
@@ -83,7 +83,7 @@ def test_window_hides_the_oldest_keys():
 
 def test_fp8_rounds_to_three_mantissa_bits():
     x = torch.tensor([[1.0, 1.0625, 448.0, -3.3]])
-    y = llama_ref.fp8(x, -1)
+    y = common.fp8(x, -1)
     assert y[0, 0] == 1.0 and y[0, 2] == 448.0
     assert y[0, 1] in (1.0, 1.125)
     assert abs(y[0, 3] + 3.3) <= 3.3 / 8

@@ -1,10 +1,11 @@
 """The flash kernels' least time is counted at the model's own head dim
-(96 for Phi-3), against a count made by hand."""
+(96 for Phi-3), and the dense family's operations, against counts made
+by hand."""
 
 import pytest
 
+from perfbench.families import dense
 from perfbench.lib import roofline as R
-from perfbench.lib.spec import ModelSpec
 
 
 def test_visible_pairs_with_the_window_by_hand():
@@ -34,12 +35,13 @@ def test_flash_bound_at_head_dim_96_by_hand(kind, per_pair, q_like, k_like,
 
 
 def test_model_operations_by_hand():
-    spec = ModelSpec("x", vocab=10, dim=8, layers=2, heads=2, kv_heads=1,
+    spec = dense.ModelSpec("x", vocab=10, dim=8, layers=2, heads=2, kv_heads=1,
                      head_dim=4, ff=12, rope_theta=1e4, window=3, eps=1e-6,
                      dtype="bfloat16", max_positions=64)
     per_layer = 8 * 8 + 2 * 8 * 4 + 8 * 8 + 3 * 8 * 12
     assert spec.matmul_params() == 2 * per_layer + 10 * 8
     # positions 0..4 see 1, 2, 3, 3, 3 keys
     attn = 4 * 2 * 2 * 4 * (1 + 2 + 3 + 3 + 3)
-    assert R.forward_flops(spec, 0, 5) == 2 * spec.matmul_params() * 5 + attn
-    assert R.attention_flops(spec, 3, 2) == 4 * 2 * 2 * 4 * (3 + 3)
+    assert dense.forward_flops(spec, 0, 5) == (2 * spec.matmul_params() * 5
+                                               + attn)
+    assert dense.attention_flops(spec, 3, 2) == 4 * 2 * 2 * 4 * (3 + 3)

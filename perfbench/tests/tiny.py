@@ -16,7 +16,7 @@ HERE = Path(__file__).resolve().parents[1]
 REPO = HERE.parent
 
 TINY = {
-    "hidden_act": "silu", "hidden_size": 64, "intermediate_size": 96,
+    "family": "dense", "hidden_act": "silu", "hidden_size": 64, "intermediate_size": 96,
     "max_position_embeddings": 256, "num_attention_heads": 4,
     "num_hidden_layers": 2, "num_key_value_heads": 2, "rms_norm_eps": 1e-6,
     "rope_theta": 10000.0, "sliding_window": 40,
