@@ -83,6 +83,15 @@ class LlamaConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+    @property
+    def windows(self) -> Tuple[int, ...]:
+        """Each layer's window (0: full causal): the one ``window``."""
+        return (self.window,) * self.layers
+
 
 def llama3_8b() -> LlamaConfig:
     return LlamaConfig(
@@ -154,6 +163,12 @@ class Llama(nn.Module):
 
     def forward(self, tokens, positions=None, use_flash=None):
         return llama_apply(self, tokens, positions, use_flash)
+
+    def apply_cached(self, tokens, cache, live=None):
+        """``llama_apply_cached``: the serving entry ``DecodeServer`` and
+        ``prefill_slot`` call on any decoder (``live``, the rows a model
+        with experts counts, is not read: a Llama counts nothing)."""
+        return llama_apply_cached(self, tokens, cache)
 
 
 def _linear_init(generator: torch.Generator, in_dim: int, out_dim: int,
@@ -540,33 +555,59 @@ def make_llama_sp_loss(cfg: LlamaConfig, mesh, axis_name: str = "sp",
 
 # ---- KV-cache inference -------------------------------------------------
 #
-# Cache: [layers, B, KvH, S, head_dim] k/v buffers plus a length (a
-# scalar, or one per batch row for continuous batching). For full-causal
-# models S = max_seq_len and positions write at their absolute index;
-# for sliding-window models the cache is a rolling ring of
-# S = min(window, max_seq_len) slots and position p lives in slot p % S.
+# Cache: per layer a [B, KvH, S, head_dim] k/v buffer (``cache["k"][i]``),
+# plus a length (a scalar, or one per batch row for continuous
+# batching). A layer with a window keeps a rolling ring of
+# S = min(window, max_seq_len) slots, position p in slot p % S; a full
+# layer keeps S = max_seq_len slots, each position at its absolute
+# index. Every layer of a Llama has the one window, so its layers share
+# one cache kind and one stacked [layers, B, KvH, S, head_dim] buffer;
+# a model whose layers differ (``models/afmoe.py``) keeps one stacked
+# buffer a kind and hands each layer a view of its own.
 
 
-def cache_slots(cfg: LlamaConfig) -> int:
-    """Ring size: full history, or the window for SWA models."""
-    if cfg.window > 0:
-        return min(cfg.window, cfg.max_seq_len)
-    return cfg.max_seq_len
+def layer_slots(cfg) -> Tuple[int, ...]:
+    """Each layer's cache size, from its window (``cfg.windows``)."""
+    return tuple(min(w, cfg.max_seq_len) if w > 0 else cfg.max_seq_len
+                 for w in cfg.windows)
 
 
-def init_kv_cache(cfg: LlamaConfig, batch: int, dtype=None,
+def cache_slots(cfg) -> int:
+    """The smallest layer cache (a Llama's ring: full history, or the
+    window for SWA models): the most positions one prefill may write."""
+    return min(layer_slots(cfg))
+
+
+def init_kv_cache(cfg, batch: int, dtype=None,
                   per_slot: bool = False,
                   device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """``per_slot=True`` gives each batch row its own length: the
     continuous-batching layout of ``DecodeServer``. Lengths are int64
-    (torch's index dtype)."""
+    (torch's index dtype). One cache kind (every layer the same size)
+    is one stacked buffer each of k and v; several are a list of
+    per-layer views, one stacked buffer a kind beneath."""
     device = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
-    hd = cfg.dim // cfg.num_heads
-    shape = (cfg.layers, batch, cfg.num_kv_heads, cache_slots(cfg), hd)
+    slots = layer_slots(cfg)
+
+    def buffer(layers: int, size: int) -> torch.Tensor:
+        return torch.zeros((layers, batch, cfg.num_kv_heads, size,
+                            cfg.head_dim), dtype=dtype, device=device)
+
+    if len(set(slots)) == 1:
+        k, v = buffer(len(slots), slots[0]), buffer(len(slots), slots[0])
+    else:
+        kinds = {size: (buffer(slots.count(size), size),
+                        buffer(slots.count(size), size))
+                 for size in sorted(set(slots))}
+        k, v = [], []
+        for i, size in enumerate(slots):
+            j = slots[:i].count(size)
+            k.append(kinds[size][0][j])
+            v.append(kinds[size][1][j])
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": k,
+        "v": v,
         "length": torch.zeros((batch,) if per_slot else (),
                               dtype=torch.int64, device=device),
     }
@@ -644,6 +685,40 @@ def _attend_ring(q, k_ring, v_ring, length_after, num_heads,
     return out.reshape(batch, num_heads, t_q, hd)
 
 
+def cache_positions(start: torch.Tensor, seq: int) -> torch.Tensor:
+    """The positions of ``seq`` new tokens after the cache's length:
+    [B, seq] after per-slot lengths [B], [seq] after a scalar one."""
+    steps = torch.arange(seq, device=start.device)
+    return start[:, None] + steps if start.dim() == 1 else start + steps
+
+
+def write_index(positions: torch.Tensor, slots: int,
+                absolute: bool = False) -> torch.Tensor:
+    """The slots of an ``slots``-slot layer cache that ``positions`` are
+    written to: position p in slot p % slots (a ring), or in slot p
+    (``absolute``: a multi-token prefill into a full-history cache, which
+    fails past the end where a ring would wrap). Per-slot positions
+    [B, 1] give one slot a row."""
+    if positions.dim() == 2:
+        return torch.remainder(positions[:, 0], slots)
+    return positions if absolute else torch.remainder(positions, slots)
+
+
+def store(buf: torch.Tensor, new: torch.Tensor, write_idx: torch.Tensor,
+          rows: Optional[torch.Tensor] = None) -> None:
+    """Write new k or v [B, KvH, T, hd] into ``buf`` [B, KvH, S, hd], a
+    view into the cache, in place: at slots ``write_idx``, or, for a
+    per-slot cache (T == 1, ``rows`` = arange(B)), at the (row, slot)
+    pairs."""
+    new = new.to(buf.dtype)
+    if rows is not None:
+        # the indexed dim comes first, as in the reference's
+        # buf.at[arange(B), :, write_idx, :]
+        buf[rows, :, write_idx, :] = new[:, :, 0, :]
+    else:
+        buf.index_copy_(2, write_idx, new)
+
+
 def llama_apply_cached(
     model: Llama, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -664,7 +739,7 @@ def llama_apply_cached(
     dtype = cfg.torch_dtype
     batch, seq = tokens.shape
     hd = cfg.dim // cfg.num_heads
-    slots = cache["k"].shape[3]
+    slots = cache["k"][0].shape[2]
     if seq > slots:
         raise ValueError(
             f"cannot write {seq} positions into a {slots}-slot cache "
@@ -677,26 +752,10 @@ def llama_apply_cached(
             "per-slot cache accepts seq == 1 only; admit prompts via "
             "prefill_slot"
         )
-    steps = torch.arange(seq, device=tokens.device)
     full_history = slots == cfg.max_seq_len
-    if per_slot:
-        positions = start[:, None] + steps               # [B, 1]
-        write_idx = torch.remainder(positions[:, 0], slots)
-        rows = torch.arange(batch, device=tokens.device)
-    else:
-        positions = start + steps
-        write_idx = (positions if full_history and seq > 1
-                     else torch.remainder(positions, slots))
-
-    def _store(buf, new):
-        # buf [B, KvH, S, hd] is a view into the cache: written in place
-        new = new.to(buf.dtype)
-        if per_slot:
-            # (row, slot) index pairs; the indexed dim comes first, as
-            # in the reference's buf.at[arange(B), :, write_idx, :]
-            buf[rows, :, write_idx, :] = new[:, :, 0, :]
-        else:
-            buf.index_copy_(2, write_idx, new)
+    positions = cache_positions(start, seq)
+    write_idx = write_index(positions, slots, full_history and seq > 1)
+    rows = torch.arange(batch, device=tokens.device) if per_slot else None
 
     x = model.embed.to(dtype)[tokens]
     for i, layer in enumerate(model.layers):
@@ -712,8 +771,8 @@ def llama_apply_cached(
             # store first, attend over the ring alone: the write cannot
             # evict in-band keys (decode's one evicted slot is out of the
             # band; a full-history cache never evicts)
-            _store(k_cache, k)
-            _store(v_cache, v)
+            store(k_cache, k, write_idx, rows)
+            store(v_cache, v, write_idx, rows)
             out = _attend_ring(q, k_cache, v_cache, start + seq,
                                cfg.num_heads, cfg.num_kv_heads, cfg.window)
         else:
@@ -721,8 +780,8 @@ def llama_apply_cached(
             # k/v] BEFORE storing
             out = _attend_cached(q, k_cache, v_cache, k, v, start,
                                  cfg.num_heads, cfg.num_kv_heads, cfg.window)
-            _store(k_cache, k)
-            _store(v_cache, v)
+            store(k_cache, k, write_idx, rows)
+            store(v_cache, v, write_idx, rows)
         out = out.to(dtype).transpose(1, 2).reshape(
             batch, seq, cfg.num_heads * hd)
         x = x + _matmul(out, layer.wo, dtype)
@@ -740,21 +799,25 @@ def llama_apply_cached(
     return logits, cache
 
 
-def prefill_slot(model: Llama, tokens: torch.Tensor,
-                 cache: Dict[str, torch.Tensor], slot: int):
+def prefill_slot(model, tokens: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], slot: int,
+                 live: Optional[torch.Tensor] = None):
     """Admit one sequence into batch row ``slot`` of a per-slot cache:
     prefill its prompt ([1, T] tokens; pad to a bucket) through the
-    scalar-cache path on a view of that row, then set the row's length.
+    model's scalar-cache path (``model.apply_cached``) on a view of that
+    row, every layer's, from length 0, then set the row's length.
     Returns (prompt logits [1, T, vocab], cache); under padding the
-    caller samples at its TRUE last position. Other rows are untouched."""
+    caller samples at its TRUE last position; ``live`` [1, T] (bool)
+    marks the prompt's tokens, for the model's own counts. Other rows are
+    untouched."""
     if tokens.shape[0] != 1:
         raise ValueError("prefill_slot admits one sequence at a time")
     row = {
-        "k": cache["k"][:, slot:slot + 1],
-        "v": cache["v"][:, slot:slot + 1],
+        "k": [k[slot:slot + 1] for k in cache["k"]],
+        "v": [v[slot:slot + 1] for v in cache["v"]],
         "length": torch.zeros((), dtype=torch.int64, device=tokens.device),
     }
-    logits, row = llama_apply_cached(model, tokens, row)
+    logits, row = model.apply_cached(tokens, row, live)
     cache["length"][slot] = row["length"]
     return logits, cache
 

@@ -173,3 +173,84 @@ def moe_param_spec():
         "w_up": P("ep", "tp", None),
         "w_down": P("ep", None, "tp"),
     }
+
+
+def expert_slots(experts: torch.Tensor, total: int) -> torch.Tensor:
+    """[total] int64: each expert's index among ``experts`` (the global
+    ids a rank holds), or ``len(experts)`` for one held elsewhere."""
+    slots = torch.full((total,), len(experts), dtype=torch.int64,
+                       device=experts.device)
+    slots[experts] = torch.arange(len(experts), device=experts.device)
+    return slots
+
+
+def _grouped(x: torch.Tensor, w: torch.Tensor,
+             offsets: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` [N, in] grouped by ``offsets`` (group g ends at row
+    offsets[g]) times group g's [out, in] weight of ``w`` [G, out, in];
+    rows past the last offset come back undefined."""
+    return torch._grouped_mm(x, w.transpose(-2, -1), offs=offsets)
+
+
+def dropless_moe(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+                 w_gate: torch.Tensor, w_up: torch.Tensor,
+                 w_down: torch.Tensor, slots: torch.Tensor, top_k: int,
+                 route_scale: float, route_norm: bool = True,
+                 shared: Optional[Tuple[torch.Tensor, ...]] = None,
+                 load: Optional[torch.Tensor] = None,
+                 live: Optional[torch.Tensor] = None,
+                 trace=None) -> torch.Tensor:
+    """x [N, D] -> [N, D] in x's dtype: the routed experts this rank
+    holds, plus the shared expert.
+
+    ``router`` [E, D] and ``bias`` [E] (float32) score every expert:
+    ``s = sigmoid(router x)``; a token's experts are the ``top_k``
+    largest ``s + bias`` (the bias selects only), weighted by their
+    ``s``, normalised to sum 1 with ``route_norm``, times
+    ``route_scale``. ``w_gate``, ``w_up`` [E_held, H, D] and ``w_down``
+    [E_held, D, H] are the held experts' SwiGLU weights, in the order of
+    ``slots`` (``expert_slots``: each global expert's held index, or
+    E_held). Routes to an expert held elsewhere add nothing here: the
+    partial result of this rank's share. ``shared``: (gate, up, down)
+    of the shared expert ([H_s, D], [H_s, D], [D, H_s]), computed for
+    every token. ``load`` [E_held] (int64), when given, gains the routes
+    each held expert took from the tokens ``live`` [N] (bool) marks,
+    every token when None. ``trace`` (a ``SpanLog``) records the
+    router and the sort as ``moe.route``; leave it None inside a CUDA
+    graph's capture."""
+    tokens, dim = x.shape
+    held = w_gate.shape[0]
+    dtype = w_gate.dtype
+    span = trace.span("moe.route").start() if trace is not None else None
+    scores = torch.sigmoid(F.linear(x.float(), router))            # [N, E]
+    chosen = torch.topk(scores + bias, top_k, dim=-1).indices      # [N, k]
+    weights = scores.gather(-1, chosen)
+    if route_norm:
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+    weights = weights * route_scale
+    local = slots[chosen].flatten()                                # [N k]
+    order = torch.argsort(local, stable=True)
+    counts = torch.zeros(held + 1, dtype=torch.int64, device=x.device)
+    counts.scatter_add_(0, local, torch.ones_like(local))
+    offsets = torch.cumsum(counts[:held], 0).to(torch.int32)
+    rows = torch.div(order, top_k, rounding_mode="floor")          # token
+    if span is not None:
+        span.end()
+    xs = x.to(dtype)[rows]
+    h = F.silu(_grouped(xs, w_gate, offsets)) * _grouped(xs, w_up, offsets)
+    ys = _grouped(h, w_down, offsets).float()
+    mine = (local[order] < held)[:, None]
+    ys = torch.where(mine, ys * weights.flatten()[order][:, None], 0.0)
+    out = torch.zeros(tokens, dim, dtype=torch.float32, device=x.device)
+    out.index_add_(0, rows, ys)
+    if shared is not None:
+        gate, up, down = (w.to(dtype) for w in shared)
+        xd = x.to(dtype)
+        out += F.linear(F.silu(F.linear(xd, gate)) * F.linear(xd, up),
+                        down).float()
+    if load is not None:
+        taken = counts if live is None else torch.zeros_like(
+            counts).scatter_add_(0, local, live.to(torch.int64)
+                                 .repeat_interleave(top_k))
+        load.add_(taken[:held])
+    return out.to(x.dtype)

@@ -2,7 +2,9 @@
 fixed-shape decode batch (port of ``kubeshare_tpu/models/serving.py``).
 
 A fixed pool of S batch slots, per-slot cache lengths
-(``init_kv_cache(per_slot=True)``), prompt admission by single-slot
+(``init_kv_cache(per_slot=True)``: one buffer a layer, a ring for a
+windowed layer and the whole horizon for a full one), prompt admission
+by single-slot
 prefill (``prefill_slot``) padded to a prompt bucket, retirement by
 length reset (``retire_slot``): an idle slot costs its masked lane of
 the batched matmuls. The cache is updated in place (models/llama.py).
@@ -31,6 +33,12 @@ reference's one ``lax.scan`` call). It replays the one-step graph
 ``quantum`` times, each step's tokens copied into a [quantum, S]
 buffer, where the reference compiles one program per quantum.
 
+The model is a ``Llama`` (``models/llama.py``) or an ``Afmoe``
+(``models/afmoe.py``): the server reaches it through its config
+(``max_seq_len``, the layers' windows) and ``model.apply_cached``. A
+model with routed experts counts the tokens each expert took, on the
+device; ``expert_load`` reads that count.
+
 The server records its own spans in ``trace`` (``utils/trace.py``):
 ``serve.admit`` around each ``admit`` (field ``tokens``, the prompt's
 length), ``serve.burst`` around each ``step_burst`` (field ``steps``,
@@ -48,8 +56,7 @@ import torch
 from ..utils.trace import SpanLog
 from .graph import Replay, restoring
 from .llama import (
-    Llama, _sample_token, cache_slots, init_kv_cache, llama_apply_cached,
-    prefill_slot, retire_slot,
+    _sample_token, cache_slots, init_kv_cache, prefill_slot, retire_slot,
 )
 
 # admit_reason() refusal codes: the same strings as the reference's
@@ -68,8 +75,8 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 class DecodeServer:
-    """S-slot continuous-batching decoder for one llama model, on the
-    model's device.
+    """S-slot continuous-batching decoder for one model (a ``Llama`` or
+    an ``Afmoe``), on the model's device.
 
     ``admit(prompt) -> (slot, first_token) | None`` (None = cannot admit),
     ``step() -> {slot: token}`` decodes every active slot one token,
@@ -82,7 +89,7 @@ class DecodeServer:
 
     def __init__(
         self,
-        model: Llama,
+        model,
         slots: int = 8,
         prompt_buckets: Sequence[int] = (32, 128, 512),
         temperature: float = 0.0,
@@ -134,13 +141,16 @@ class DecodeServer:
             for t in (self._tokens, self._active))
         # the warm-up's K/V writes land at each lane's length, where the
         # first replay writes before anything reads them; it draws from
-        # a generator of its own
+        # a generator of its own, and its routes leave the expert count
+        # as it was
         decode, generator = self._decoder(), self.generator
+        restored = [self.cache["length"], self._tokens]
+        if getattr(model, "expert_load", None) is not None:
+            restored.append(model.expert_load)
         self.decode_step = Replay(
             lambda: decode(generator),
             restoring(lambda: decode(torch.Generator(
-                device=model.device).manual_seed(0)),
-                [self.cache["length"], self._tokens]),
+                device=model.device).manual_seed(0)), restored),
             [generator] if temperature > 0 else [],
             graphed=cuda and cuda_graph)
 
@@ -160,7 +170,8 @@ class DecodeServer:
         temperature, top_k = self.temperature, self.top_k
 
         def decode(generator: torch.Generator) -> torch.Tensor:
-            logits, _ = llama_apply_cached(model, tokens[:, None], cache)
+            logits, _ = model.apply_cached(tokens[:, None], cache,
+                                           active[:, None])
             logits = logits[:, -1]
             nxt = _sample_token(logits, generator, temperature, top_k)
             # an idle lane must stay idle: its length snaps back to 0 so
@@ -170,6 +181,16 @@ class DecodeServer:
             return logits
 
         return decode
+
+    def expert_load(self) -> Optional[List[List[int]]]:
+        """Tokens each routed expert took in each expert layer since the
+        model was built, [expert layer][expert held]: the prompts' and
+        the active lanes' tokens (a prompt's bucket padding and a step's
+        idle lanes are routed too, and not counted), or None for a model
+        without experts. One host sync: read it once, after the work to
+        count."""
+        load = getattr(self.model, "expert_load", None)
+        return None if load is None else load.tolist()
 
     def _load_inputs(self) -> None:
         """The host's last tokens and active mask into the step's input
@@ -227,8 +248,9 @@ class DecodeServer:
         bucket = _bucket(true_len, self.buckets)
         padded = list(prompt) + [0] * (bucket - true_len)
         tokens = torch.tensor([padded], dtype=torch.int64, device=self.device)
+        live = torch.arange(bucket, device=self.device)[None] < true_len
         logits, self.cache = prefill_slot(self.model, tokens, self.cache,
-                                          slot)
+                                          slot, live)
         # rewind the padding: with length = true_len the mask can only
         # see the pad keys after decode has overwritten each of them
         self.cache["length"][slot] = true_len
